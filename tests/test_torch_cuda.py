@@ -1,0 +1,169 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU
+mode), carries the `cuda` marker and skips without a card.  The file
+imports torch only — no JAX — so it runs on the machine with the card:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tiers (kernel vs plain version on the same card):
+  * round_fused / round_predict: k_next / active_next and the noise's
+    uint32 bits exact; deterministic slots bitwise (same unfused f32
+    arithmetic); u / hist within rtol = atol = 1e-5 (the in-kernel normals
+    are within 2 ulp of the plain PRNG's emulated fused multiply-adds);
+  * flash_attention: f32 within 2e-5, bf16 within one bf16 ulp of the
+    output (8e-3 relative at |o| of order 1).
+"""
+import pytest
+import torch
+
+from repro_torch import random as prng
+from repro_torch.core.coeffs import FactoredBank
+from repro_torch.kernels import cuda as kc
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.round_fused import ops as rf
+from repro_torch.kernels.round_fused import ref as rf_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bank(dev, D, K=2, CB=8, NB=8, QB=2, PB=3, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    f32 = lambda *s: torch.randn(s, generator=g)
+    di = lambda *s: torch.randint(0, PB, s, generator=g, dtype=torch.int32)
+    rows = [(4, False, False, 0), (5, False, True, 0), (5, True, False, 0),
+            (4, True, False, 1), (4, False, False, 2)]
+    n_steps = torch.ones(CB, dtype=torch.int32)
+    stoch = torch.zeros(CB, dtype=torch.bool)
+    corr = torch.zeros(CB, dtype=torch.bool)
+    alg = torch.zeros(CB, dtype=torch.int32)
+    for c, (n, s, cc, a) in enumerate(rows):
+        n_steps[c], stoch[c], corr[c], alg[c] = n, s, cc, a
+    bank = FactoredBank(
+        t_cur=f32(CB, NB), t_nxt=f32(CB, NB),
+        psi_blk=f32(CB, NB, K, K), psi_di=di(CB, NB),
+        pC_blk=f32(CB, NB, QB, K, K), pC_di=di(CB, NB, QB),
+        cC_blk=f32(CB, NB, QB, K, K), cC_di=di(CB, NB, QB),
+        B_blk=f32(CB, NB, K, K), B_di=di(CB, NB),
+        P_chol_blk=f32(CB, NB, K, K), P_chol_di=di(CB, NB),
+        diag=f32(PB, D), n_steps=n_steps, stochastic=stoch, corrector=corr,
+        fam=torch.zeros(CB, dtype=torch.int32), alg=alg)
+    return FactoredBank(*(leaf.to(dev) for leaf in bank))
+
+
+def _state(dev, cfgs, bank, D, K=2, QB=2, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    B = len(cfgs)
+    cfg = torch.tensor(cfgs, device=dev)
+    k = torch.randint(0, 5, (B,), generator=g, dtype=torch.int32).to(dev)
+    kc_ = torch.minimum(k, bank.n_steps[cfg] - 1)
+    keys = prng.to_int32_bits(torch.randint(0, 2**32, (B, 2), generator=g))
+    return dict(
+        u=torch.randn(B, K, D, generator=g).to(dev),
+        hist=torch.randn(B, QB, K, D, generator=g).to(dev),
+        k=k, kc=kc_, cfg=cfg,
+        fam=torch.tensor([0, 0, 1, 0][:B], dtype=torch.int32, device=dev),
+        prec=torch.zeros(B, dtype=torch.int32, device=dev),
+        keys=keys.to(dev),
+        active=torch.tensor([True, False, True, True][:B], device=dev),
+        eps_c=torch.randn(B, 2, D, generator=g).to(dev),
+        eps_n_c=torch.randn(B, 2, D, generator=g).to(dev))
+
+
+@pytest.mark.parametrize("D", [48, 3072])
+@pytest.mark.parametrize("cfgs,corr", [([0, 0, 4, 0], False),
+                                       ([1, 1, 0, 1], True),
+                                       ([2, 3, 2, 3], False),
+                                       ([3, 4, 1, 2], True)])
+def test_round_fused_matches_plain_version(dev, D, cfgs, corr):
+    bank = _bank(dev, D)
+    x = _state(dev, cfgs, bank, D)
+    args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["fam"],
+            x["prec"], x["keys"], x["active"], bank, x["eps_c"])
+    kw = dict(state_shape=(2, D), kf=2, with_corrector=corr,
+              eps_n_c=x["eps_n_c"])
+    kc.reset_launches()
+    got = rf.round_update(*args, **kw)
+    want = rf_ref.round_update_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert kc.launches()["round_fused"] == 1
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    det = ~bank.stochastic[x["cfg"]]
+    assert torch.equal(got[0][det], want[0][det])
+    assert torch.equal(got[1], want[1])                 # history: no noise
+
+
+@pytest.mark.parametrize("D", [48, 3072])
+def test_round_predict_matches_plain_version(dev, D):
+    bank = _bank(dev, D)
+    x = _state(dev, [0, 1, 2, 4], bank, D)
+    got = rf.round_predict(x["u"], x["hist"], x["kc"], x["cfg"], bank,
+                           x["eps_c"], kf=2)
+    want = rf_ref.round_predict_ref(x["u"], x["hist"], x["kc"], x["cfg"],
+                                    bank, x["eps_c"], kf=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_noise_bits_exact_and_normals_within_2_ulp(dev):
+    B, kf, D = 4, 2, 3072
+    n = kf * D
+    g = torch.Generator().manual_seed(3)
+    keys64 = torch.randint(0, 2**32, (B, 2), generator=g).to(dev)
+    keys = prng.to_int32_bits(keys64)
+    kcs = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=dev)
+    algs = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
+    bits, z = rf.noise_probe(keys, kcs, algs, kf=kf, D=D, n=n)
+    step = prng.fold_in(prng.fold_in(keys64, algs), kcs)
+    f = torch.arange(n, device=dev)[None]
+    want_bits = prng.bits_at(step[:, None], f, n).reshape(B, kf, D)
+    want_z = rf_ref.draw_step_noise(keys, kcs, algs, (kf, D)).reshape(B, kf, D)
+    assert torch.equal(prng.from_int32_bits(bits), want_bits)
+    ulp = (z.view(torch.int32).long() - want_z.view(torch.int32).long()).abs()
+    assert int(ulp.max()) <= 2
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 2, 32), (2, 24, 3, 32),
+                                   (2, 100, 2, 128), (4, 256, 12, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(dev, shape, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype)
+               for _ in range(3))
+    kc.reset_launches()
+    got = attn_ops.attention(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kc.launches()["flash_attention"] == 1 and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(attn_ops, "attention_ref", boom)
+    q = torch.randn(1, 8, 2, 32, device=dev)
+    attn_ops.attention(q, q, q, causal=False)
+    with pytest.raises(NotImplementedError):
+        attn_ops.attention(q, q, q, causal=True)       # not ported: raises
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(*(torch.randn(1, 8, 2, 48, device=dev),) * 3)
+    torch.cuda.synchronize()
+
+
+def test_both_libraries_build(dev):
+    reports = kc.build_all(["round_fused", "attention"])
+    assert set(reports) == {"round_fused", "attention"}
+    assert all("error" not in r for r in reports.values())
