@@ -64,7 +64,7 @@ def serve_samples(args) -> int:
     net = spec.init(seed=args.seed, device=device)
     engine = DiffusionEngine(spec, net, batch_size=args.batch,
                              default_config=args.default_config,
-                             sync_every=args.sync_every, device=device)
+                             device=device)
     mix = args.mix_parsed
     requests = [ServeRequest(rid=i, workload="diffusion", seed=args.seed + i,
                              **(mix[i % len(mix)] if mix else {}))
@@ -106,7 +106,6 @@ def main(argv=None) -> int:
     ap.add_argument("--mix", nargs="+", metavar="SPEC",
                     help="per-request sampler configs to cycle through, "
                          "e.g. --mix nfe=10,q=2 nfe=10,lam=0.5")
-    ap.add_argument("--sync-every", type=int, default=8)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")

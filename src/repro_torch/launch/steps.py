@@ -13,16 +13,15 @@ from __future__ import annotations
 import torch
 
 
-def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0,
-                              eps_model=None):
+def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0):
     """Bank-mode gDDIM step over a device-resident `DiffusionState`: the
     Eq. 19/22/45 update plus the per-slot bookkeeping — advance `k`, retire
     (clear `active`) when a slot reaches its config's NFE, and freeze
     retired and foreign rows so a finished sample survives until the host
     fetches it.
 
-    The step evaluates this spec's score net over the packed batch (or
-    `eps_model`), and commits only to active slots whose `state.fam` and
+    The step evaluates this spec's score net over the packed batch, and
+    commits only to active slots whose `state.fam` and
     `state.prec` match this variant (`fam_index`/`prec_index`).  Everything
     stays on the state's device: no value is read back to the host."""
     from ..kernels.round_fused import ops as rf
@@ -32,7 +31,7 @@ def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0,
     kf = sde.packed_k
     data_shape = tuple(spec.data_shape)
     state_shape = sde.state_shape(data_shape)
-    model = spec.eps_model if eps_model is None else eps_model
+    model = spec.eps_model
 
     @torch.no_grad()
     def round_step(params, state, bank, with_corrector: bool = False):

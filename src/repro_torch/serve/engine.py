@@ -63,24 +63,18 @@ class DiffusionEngine(ServeLoop):
     """
 
     _NOISE_SALT = 0x5EED              # separates step noise from the prior
-    greedy_admit = False              # one cost-class wave per admission cycle
 
     def __init__(self, spec: Any, params: torch.nn.Module, batch_size: int,
-                 nfe: Optional[int] = None, grid: Optional[str] = None,
+                 nfe: Optional[int] = None,
                  default_config: Optional[SamplerConfig] = None,
-                 precision: str = "f32", sync_every: int = 8,
                  device="cuda"):
         self.device = torch.device(device)
         if default_config is None:
-            default_config = SamplerConfig(
-                nfe=20 if nfe is None else nfe,
-                grid="quadratic" if grid is None else grid)
-        elif nfe is not None or grid is not None:
-            raise ValueError("pass either nfe/grid or default_config, "
-                             "not both")
+            default_config = SamplerConfig(nfe=20 if nfe is None else nfe)
+        elif nfe is not None:
+            raise ValueError("pass either nfe or default_config, not both")
         super().__init__(batch_size,
-                         Scheduler(group_key=lambda r: self._class_of(r)),
-                         sync_every=sync_every)
+                         Scheduler(group_key=lambda r: self._class_of(r)))
         name = family_name(spec.sde)
         self.specs = {name: spec}
         self.spec = spec
@@ -95,7 +89,7 @@ class DiffusionEngine(ServeLoop):
         self.default_config = dataclasses.replace(default_config, family=name)
         self.cache.index_of(self.default_config)
 
-        self.precision = self._check_precision(precision)
+        self.precision = PRECISIONS[0]
         self.params = params.to(self.device)
         self.state = diffusion_state_init(
             batch_size, self.cache.k_max, int(np.prod(self._data_shape)),

@@ -10,7 +10,7 @@ closed list of requests:
                                   #   traffic: prior draws at admission)
         n = _rounds_until_poll()  # host-side lower bound on rounds until
                                   #   the next retirement, capped at
-                                  #   sync_every
+                                  #   SYNC_EVERY
         n x _round()              # device-resident steps, queued on the
                                   #   stream without a sync
         _poll(results)            # host arithmetic (a sampler's retirement
@@ -27,6 +27,8 @@ from typing import Any, Dict, List
 import numpy as np
 
 from .slots import SlotTable
+
+SYNC_EVERY = 8      # most rounds queued between two polls (the JAX default)
 
 
 def check_unique_rids(requests) -> None:
@@ -51,17 +53,9 @@ class ServeLoop:
                                 slot can retire (0 = may already be done)
     """
 
-    #: non-greedy engines admit ONE head-of-line wave per cycle, so a queued
-    #: wave of a more expensive cost class does not land next to the cheap
-    #: wave just admitted
-    greedy_admit = True
-
-    def __init__(self, batch_size: int, scheduler, sync_every: int = 8):
-        if sync_every < 1:
-            raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    def __init__(self, batch_size: int, scheduler):
         self.batch_size = batch_size
         self.scheduler = scheduler
-        self.sync_every = sync_every
         self.slots = SlotTable(batch_size)
         self.n_polls = 0
         self.wave_log: List[tuple] = []
@@ -90,21 +84,20 @@ class ServeLoop:
         return results
 
     def _admit(self) -> None:
-        """Fill free slots from the queue in class-homogeneous waves."""
-        while True:
-            free = self.slots.free_ids()
-            group = self.scheduler.take_group(len(free))
-            if not group:
-                return
-            self.wave_log.append(
-                tuple(self.scheduler._group_key(r) for r in group))
-            self._admit_wave(group, list(free[:len(group)]))
-            if not self.greedy_admit:
-                return
+        """Admit ONE class-homogeneous head-of-line wave into free slots, so
+        a queued wave of a more expensive cost class does not land next to
+        the cheap wave just admitted."""
+        free = self.slots.free_ids()
+        group = self.scheduler.take_group(len(free))
+        if not group:
+            return
+        self.wave_log.append(
+            tuple(self.scheduler._group_key(r) for r in group))
+        self._admit_wave(group, list(free[:len(group)]))
 
     def _rounds_until_poll(self) -> int:
         lb = min(self._remaining_lb(s) for s in self.slots.active())
-        return max(0, min(lb, self.sync_every))
+        return max(0, min(lb, SYNC_EVERY))
 
     # ---- engine hooks -------------------------------------------------------
     def _validate(self, req) -> None:
