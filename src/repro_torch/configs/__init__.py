@@ -6,6 +6,7 @@ from typing import Dict
 
 DIFFUSION_MODULES: Dict[str, str] = {
     "cifar10-cld": "paper_cld",
+    "cifar10-bdm": "paper_bdm",
 }
 
 

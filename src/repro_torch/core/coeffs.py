@@ -340,9 +340,11 @@ def factor_coeff(ops, coeff, data_shape: Tuple[int, ...],
 
       scalar   c        ->  c e00       x  None  (the all-ones diagonal)
       block    M (k,k)  ->  M (padded)  x  None
+      freqdiag d        ->  e00         x  d broadcast over data_shape
 
     `None` means the shared all-ones pool row (slot 0 of
-    `FactoredBank.diag`)."""
+    `FactoredBank.diag`); an all-zero freq-diagonal coefficient is the
+    zero block on that row."""
     blk = np.zeros((k_max, k_max), np.float64)
     coeff = np.asarray(coeff, np.float64)
     if ops.family == "scalar":
@@ -352,7 +354,13 @@ def factor_coeff(ops, coeff, data_shape: Tuple[int, ...],
         k = coeff.shape[-1]
         blk[:k, :k] = coeff
         return blk, None
-    raise ValueError(f"coeff family {ops.family!r} is not ported")
+    if ops.family == "freqdiag":
+        if not np.any(coeff):
+            return blk, None                   # zero block annihilates
+        blk[0, 0] = 1.0
+        diag = np.broadcast_to(coeff, data_shape).reshape(-1)
+        return blk, np.ascontiguousarray(diag, np.float64)
+    raise ValueError(f"unknown coeff family {ops.family!r}")
 
 
 class FactoredBank(NamedTuple):

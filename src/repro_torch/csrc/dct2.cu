@@ -1,0 +1,202 @@
+// The orthonormal 2-D DCT of BDM's frequency basis and the fused BDM
+// gDDIM update, for Hopper (sm_90a).
+//
+// Replaces the JAX package's Pallas TPU kernels
+//   kernels/dct2/kernel.py  dct2           (body _dct_kernel)
+//   kernels/dct2/kernel.py  bdm_ei_update  (body _bdm_kernel)
+//
+// dct2 computes Y = C_h X C_w^T (or its inverse X = C_h^T Y C_w) for every
+// (b, channel) tile of a channels-last (B, H, W, Ch) f32 image batch.
+// bdm_ei_update computes IDCT(psi * DCT(u) + sum_j C_j * DCT(eps_j)) per
+// tile, psi and C_j per frequency and shared by the channels.
+//
+// What bounds it on this card: bytes, and at serving sizes the launch.  A
+// dct2 call at B = 4, 32 x 32 x 3 moves 2 x 48 KB and does ~1.6 MFLOP of
+// f32 products (~0.03 us of traffic at 3.35 TB/s, ~0.02 us of f32 work at
+// 67 TFLOP/s), so the launch costs far more than the work.  The design
+// keeps each transform to ONE launch that reads every input element once
+// and writes every output element once: the TPU version transposes to
+// (B, Ch, H, W) on the host and back (two more passes, two more launches);
+// here a block reads its tile straight from the channels-last layout with
+// stride Ch and writes it back the same way.  bdm_ei_update reads q + 1
+// tiles and writes one, (q + 2) |u| bytes in all; at q = 2 its (q + 2)
+// transforms make it about as much work as traffic.
+//
+// Design.  One block per (b, channel) tile, 256 threads.  The two DCT
+// matrices (f32 copies of the host float64 matrix, passed in as small
+// device buffers) and the tile live in shared memory; each product runs
+// one output element per thread, as f32 fused multiply-adds on the CUDA
+// cores, in the plain version's order (the H axis first, then W).  No
+// tensor cores: TF32 keeps about three decimal digits, and that error
+// would land in every canonicalize of the serving state.  Matrix rows are
+// padded to n + 1 floats so that a warp walking a column hits distinct
+// banks.  H and W may be any size up to 64 (the 8 x 8 reduced config and
+// the 32 x 32 CIFAR frame are the ones served); above 48 KB the shared
+// memory is requested as dynamic shared memory.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxN = 64;
+
+struct Smem {
+  float* ch;    // C_h, rows padded to H + 1
+  float* cw;    // C_w, rows padded to W + 1
+  float* x;     // the tile being transformed, (H, W) row-major
+  float* t;     // after the H-axis product
+  float* y;     // bdm_ei_update's frequency-space sum
+};
+
+__device__ __forceinline__ Smem carve(float* sm, int H, int W) {
+  Smem s;
+  s.ch = sm;
+  s.cw = s.ch + H * (H + 1);
+  s.x = s.cw + W * (W + 1);
+  s.t = s.x + H * W;
+  s.y = s.t + H * W;
+  return s;
+}
+
+__device__ __forceinline__ void load_mats(const float* ch, const float* cw,
+                                          Smem s, int H, int W) {
+  for (int e = threadIdx.x; e < H * H; e += blockDim.x)
+    s.ch[(e / H) * (H + 1) + e % H] = ch[e];
+  for (int e = threadIdx.x; e < W * W; e += blockDim.x)
+    s.cw[(e / W) * (W + 1) + e % W] = cw[e];
+}
+
+// tile (b, c) of a channels-last (., H, W, Ch) array -> dst (H, W)
+__device__ __forceinline__ void load_tile(const float* src, float* dst,
+                                          int HW, int Ch) {
+  for (int e = threadIdx.x; e < HW; e += blockDim.x)
+    dst[e] = src[(size_t)e * Ch];
+}
+
+// t[h][j] = sum_i A[h][i] x[i][j]; A = C_h (forward) or C_h^T (inverse)
+__device__ __forceinline__ void along_h(const float* ch, const float* x,
+                                        float* t, int H, int W,
+                                        bool inverse) {
+  for (int e = threadIdx.x; e < H * W; e += blockDim.x) {
+    const int h = e / W, j = e - h * W;
+    float acc = 0.0f;
+    for (int i = 0; i < H; ++i) {
+      const float a = inverse ? ch[i * (H + 1) + h] : ch[h * (H + 1) + i];
+      acc = fmaf(a, x[i * W + j], acc);
+    }
+    t[e] = acc;
+  }
+}
+
+// element e = (h, w) of sum_j t[h][j] B[w][j]; B = C_w (forward) or
+// C_w^T (inverse)
+__device__ __forceinline__ float along_w(const float* cw, const float* t,
+                                         int e, int W, bool inverse) {
+  const int h = e / W, w = e - h * W;
+  float acc = 0.0f;
+  for (int j = 0; j < W; ++j) {
+    const float b = inverse ? cw[j * (W + 1) + w] : cw[w * (W + 1) + j];
+    acc = fmaf(t[h * W + j], b, acc);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dct2_kernel(const float* x, float* y, const float* ch, const float* cw,
+            int H, int W, int Ch, int inverse) {
+  extern __shared__ float sm[];
+  const Smem s = carve(sm, H, W);
+  const int b = blockIdx.x / Ch, c = blockIdx.x - b * Ch;
+  const size_t off = (size_t)b * H * W * Ch + c;
+  load_mats(ch, cw, s, H, W);
+  load_tile(x + off, s.x, H * W, Ch);
+  __syncthreads();
+  along_h(s.ch, s.x, s.t, H, W, inverse != 0);
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * W; e += blockDim.x)
+    y[off + (size_t)e * Ch] = along_w(s.cw, s.t, e, W, inverse != 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bdm_ei_update_kernel(const float* u, const float* eps, const float* psi,
+                     const float* C, float* out, const float* ch,
+                     const float* cw, int B, int H, int W, int Ch, int q) {
+  extern __shared__ float sm[];
+  const Smem s = carve(sm, H, W);
+  const int HW = H * W;
+  const int b = blockIdx.x / Ch, c = blockIdx.x - b * Ch;
+  const size_t off = (size_t)b * HW * Ch + c;
+  load_mats(ch, cw, s, H, W);
+  load_tile(u + off, s.x, HW, Ch);
+  __syncthreads();
+  along_h(s.ch, s.x, s.t, H, W, false);
+  __syncthreads();
+  for (int e = threadIdx.x; e < HW; e += blockDim.x)
+    s.y[e] = __fmul_rn(along_w(s.cw, s.t, e, W, false), psi[e]);
+  for (int j = 0; j < q; ++j) {
+    // the sync after this load also orders the previous along_w's reads
+    // of t before along_h overwrites it
+    load_tile(eps + (size_t)j * B * HW * Ch + off, s.x, HW, Ch);
+    __syncthreads();
+    along_h(s.ch, s.x, s.t, H, W, false);
+    __syncthreads();
+    for (int e = threadIdx.x; e < HW; e += blockDim.x)
+      s.y[e] = __fadd_rn(s.y[e], __fmul_rn(along_w(s.cw, s.t, e, W, false),
+                                           C[(size_t)j * HW + e]));
+  }
+  __syncthreads();
+  along_h(s.ch, s.y, s.t, H, W, true);
+  __syncthreads();
+  for (int e = threadIdx.x; e < HW; e += blockDim.x)
+    out[off + (size_t)e * Ch] = along_w(s.cw, s.t, e, W, true);
+}
+
+size_t smem_bytes(int H, int W, int tiles) {
+  return sizeof(float) * ((size_t)H * (H + 1) + (size_t)W * (W + 1)
+                          + (size_t)tiles * H * W);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel k, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+bool bad_shape(int B, int H, int W, int Ch) {
+  return B < 1 || Ch < 1 || H < 1 || W < 1 || H > kMaxN || W > kMaxN;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int repro_dct2(const float* x, float* y, const float* ch, const float* cw,
+               int B, int H, int W, int Ch, int inverse, void* stream) {
+  if (bad_shape(B, H, W, Ch)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(H, W, 2);
+  cudaError_t err = allow_smem(dct2_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dct2_kernel<<<B * Ch, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, y, ch, cw, H, W, Ch, inverse);
+  return (int)cudaGetLastError();
+}
+
+int repro_bdm_ei_update(const float* u, const float* eps, const float* psi,
+                        const float* C, float* out, const float* ch,
+                        const float* cw, int B, int H, int W, int Ch, int q,
+                        void* stream) {
+  if (bad_shape(B, H, W, Ch) || q < 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(H, W, 3);
+  cudaError_t err = allow_smem(bdm_ei_update_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  bdm_ei_update_kernel<<<B * Ch, kThreads, bytes, (cudaStream_t)stream>>>(
+      u, eps, psi, C, out, ch, cw, B, H, W, Ch, q);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

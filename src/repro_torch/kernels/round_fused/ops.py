@@ -12,9 +12,11 @@ state's device:
     launch each, after staging this round's factor pairs (`_stage_factors`)
     and per-slot integers — or raise.
 
-The kernel draws the Eq. 22 noise itself, which needs a family whose
-canonical layout is a reshape (VPSDE, CLD); the streamed-noise mode for the
-other families is not ported.
+The commit kernel draws the Eq. 22 noise itself when the family's
+canonical layout is a reshape of its state (VPSDE, CLD).  Otherwise (BDM,
+whose canonicalize is a DCT) the noise is streamed: `step_noise` draws it
+in state space with the same in-kernel threefry, `sde.canonicalize` (the
+dct2 kernel) transforms it, and the commit reads it (`noise_c`).
 
 `fused_round_cost(...)` is the analytic bytes/FLOPs model of one launch.
 """
@@ -34,13 +36,13 @@ Tensor = torch.Tensor
 N_INTS = 8      # per-slot ints: [kc, k, n_steps, mine, stoch, use_c, active, alg]
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# ints keys blks dis pool u hist eps eps_n | u_out hist_out k_out act_out |
-# B K Qb kf C D n with_corrector stream
-_FUSED_ARGS = [_VP] * 13 + [_I] * 6 + [ctypes.c_longlong, _I, _VP]
+# ints keys blks dis pool u hist eps eps_n noise_c | u_out hist_out k_out
+# act_out | B K Qb kf C D n with_corrector gen_noise stream
+_FUSED_ARGS = [_VP] * 14 + [_I] * 6 + [ctypes.c_longlong, _I, _I, _VP]
 # blks dis pool u hist eps out | B K Qb kf C D stream
 _PREDICT_ARGS = [_VP] * 7 + [_I] * 6 + [_VP]
-# keys kc alg bits z | B kf D n stream
-_PROBE_ARGS = [_VP] * 5 + [_I] * 3 + [ctypes.c_longlong, _VP]
+# keys kc alg bits z | B n stream
+_NOISE_ARGS = [_VP] * 5 + [_I, ctypes.c_longlong, _VP]
 
 
 def _stage_factors(bank, cfg, kc, kf: int, with_corrector: bool,
@@ -79,12 +81,15 @@ def _stage_ints(k, kc, cfg, fam, prec, active, bank, *, fam_index: int,
 
 
 def round_fused(ints, keys, blks, dis, pool, u, hist, eps_c, eps_n_c=None,
-                *, kf: int, n: int, with_corrector: bool = False):
+                noise_c=None, *, kf: int, n: int,
+                with_corrector: bool = False):
     """One launch of the round-commit kernel.  ints (B, 8) int32, keys
     (B, 2) int32 key words, blks (B, C, kf, kf) f32, dis (B, C) int32,
-    pool (Pb, D) f32, u (B, K, D), hist (B, Qb, K, D), eps_c / eps_n_c
-    (B, kf, D) f32.  Returns (u_next, hist_next, k_next int32,
-    active_next int32)."""
+    pool (Pb, D) f32, u (B, K, D), hist (B, Qb, K, D), eps_c / eps_n_c /
+    noise_c (B, kf, D) f32.  Given the canonical Eq. 22 noise `noise_c`
+    the kernel reads it (streamed mode); without, it draws the noise
+    itself.  Returns (u_next, hist_next, k_next int32, active_next
+    int32)."""
     B, K, D = u.shape
     Qb = hist.shape[1]
     C = blks.shape[1]
@@ -104,6 +109,9 @@ def round_fused(ints, keys, blks, dis, pool, u, hist, eps_c, eps_n_c=None,
         if eps_n_c is None:
             raise ValueError("with_corrector=True needs eps_n_c")
         cuda.require(eps_n_c, "eps_n_c", torch.float32, (B, kf, D), dev)
+    gen_noise = noise_c is None
+    if not gen_noise:
+        cuda.require(noise_c, "noise_c", torch.float32, (B, kf, D), dev)
     if not 1 <= kf <= min(K, 2):
         raise ValueError(f"round_fused: kf {kf} must be 1 or 2 and <= K {K}")
     u_out = torch.empty_like(u)
@@ -114,9 +122,10 @@ def round_fused(ints, keys, blks, dis, pool, u, hist, eps_c, eps_n_c=None,
     rc = fn(ints.data_ptr(), keys.data_ptr(), blks.data_ptr(), dis.data_ptr(),
             pool.data_ptr(), u.data_ptr(), hist.data_ptr(), eps_c.data_ptr(),
             eps_n_c.data_ptr() if with_corrector else None,
+            None if gen_noise else noise_c.data_ptr(),
             u_out.data_ptr(), hist_out.data_ptr(), k_out.data_ptr(),
             act_out.data_ptr(), B, K, Qb, kf, C, D, int(n),
-            int(with_corrector), cuda.stream_ptr(u))
+            int(with_corrector), int(gen_noise), cuda.stream_ptr(u))
     cuda.check("round_fused", rc, "round_fused")
     cuda.count_launch("round_fused")
     return u_out, hist_out, k_out, act_out
@@ -149,23 +158,27 @@ def round_predict_kernel(blks, dis, pool, u, hist, eps_c, *, kf: int) -> Tensor:
     return out
 
 
-def noise_probe(keys: Tensor, kc: Tensor, alg: Tensor, *, kf: int, D: int,
-                n: int):
-    """The round kernel's Eq. 22 noise draw on its own (a check of the
-    in-kernel PRNG, not a serving path): returns (bits (B, kf, D) int32
-    bit patterns, noise (B, kf, D) f32)."""
+def step_noise(keys: Tensor, kc: Tensor, alg: Tensor, *, n: int,
+               with_bits: bool = False):
+    """The round kernel's Eq. 22 draw on its own: (B, n) f32 innovations
+    over each slot's flat state index, the law of `ref.draw_step_noise`
+    (keys (B, 2) int32 key words, kc and alg (B,) int32).  With
+    `with_bits` also returns the threefry bits (B, n) as int32 patterns."""
     B = keys.shape[0]
     dev = keys.device
     cuda.require(keys, "keys", torch.int32, (B, 2))
     cuda.require(kc, "kc", torch.int32, (B,), dev)
     cuda.require(alg, "alg", torch.int32, (B,), dev)
-    bits = torch.empty((B, kf, D), dtype=torch.int32, device=dev)
-    z = torch.empty((B, kf, D), dtype=torch.float32, device=dev)
-    fn = cuda.function("round_fused", "repro_noise_probe", _PROBE_ARGS)
-    rc = fn(keys.data_ptr(), kc.data_ptr(), alg.data_ptr(), bits.data_ptr(),
-            z.data_ptr(), B, kf, D, int(n), cuda.stream_ptr(keys))
-    cuda.check("round_fused", rc, "noise_probe")
-    return bits, z
+    z = torch.empty((B, n), dtype=torch.float32, device=dev)
+    bits = torch.empty((B, n), dtype=torch.int32, device=dev) \
+        if with_bits else None
+    fn = cuda.function("round_fused", "repro_step_noise", _NOISE_ARGS)
+    rc = fn(keys.data_ptr(), kc.data_ptr(), alg.data_ptr(),
+            None if bits is None else bits.data_ptr(), z.data_ptr(), B,
+            int(n), cuda.stream_ptr(keys))
+    cuda.check("round_fused", rc, "step_noise")
+    cuda.count_launch("step_noise")
+    return (z, bits) if with_bits else z
 
 
 def round_predict(u, hist, kc, cfg, bank, eps_c, *, kf: int) -> Tensor:
@@ -177,7 +190,7 @@ def round_predict(u, hist, kc, cfg, bank, eps_c, *, kf: int) -> Tensor:
 
 
 def round_update(u, hist, k, kc, cfg, fam, prec, keys, active, bank, eps_c,
-                 *, state_shape, kf: int, fam_index: int = 0,
+                 *, sde, state_shape, kf: int, fam_index: int = 0,
                  prec_index: int = 0, with_corrector: bool = False,
                  eps_n_c: Optional[Tensor] = None):
     """The whole post-score-eval round commit; returns
@@ -186,16 +199,21 @@ def round_update(u, hist, k, kc, cfg, fam, prec, keys, active, bank, eps_c,
     if cuda.device_of(u) == "cpu":
         return round_update_ref(
             u, hist, k, kc, cfg, fam, prec, keys, active, bank, eps_c,
-            state_shape=state_shape, kf=kf, fam_index=fam_index,
+            sde=sde, state_shape=state_shape, kf=kf, fam_index=fam_index,
             prec_index=prec_index, with_corrector=with_corrector,
             eps_n_c=eps_n_c)
+    n = int(np.prod(state_shape))
+    noise_c = None
+    if not sde.canonical_noise_is_reshape:
+        z = step_noise(keys, kc, bank.alg[cfg], n=n)
+        noise_c = sde.canonicalize(
+            z.reshape((u.shape[0],) + tuple(state_shape))).contiguous()
     ints = _stage_ints(k, kc, cfg, fam, prec, active, bank,
                        fam_index=fam_index, prec_index=prec_index,
                        with_corrector=with_corrector)
     blks, dis = _stage_factors(bank, cfg, kc, kf, with_corrector)
-    n = int(np.prod(state_shape))
     u2, h2, k2, a2 = round_fused(ints, keys, blks, dis, bank.diag, u, hist,
-                                 eps_c, eps_n_c, kf=kf, n=n,
+                                 eps_c, eps_n_c, noise_c, kf=kf, n=n,
                                  with_corrector=with_corrector)
     return u2, h2, k2, a2.bool()
 

@@ -107,22 +107,26 @@ def round_predict_ref(u, hist, kc, cfg, bank, eps_c, *, kf: int):
 
 
 def round_update_ref(u, hist, k, kc, cfg, fam, prec, keys, active, bank,
-                     eps_c, *, state_shape, kf: int, fam_index: int = 0,
+                     eps_c, *, sde, state_shape, kf: int, fam_index: int = 0,
                      prec_index: int = 0, with_corrector: bool = False,
-                     eps_n_c=None):
+                     eps_n_c=None, noise_c=None):
     """The full post-score-eval round commit; returns
     (u_next, hist_next, k_next, active_next).
 
     `eps_c` is this round's canonical score eval; `eps_n_c` (required iff
     `with_corrector`) the canonical corrector eval at `round_predict_ref`'s
-    iterate.  Slots whose (active, fam, prec) do not match this variant are
-    frozen verbatim."""
+    iterate.  The Eq. 22 noise is drawn in state space and canonicalized
+    by `sde` (a DCT for BDM), unless the caller passes it canonical as
+    `noise_c` (B, kf, D).  Slots whose (active, fam, prec) do not match
+    this variant are frozen verbatim."""
     K = u.shape[1]
     hist2 = _shift_hist(hist, eps_c, K)
     u_lin, u_pred = _predict(u, hist2, kc, cfg, bank, kf=kf)
 
-    noise = draw_step_noise(keys, kc, bank.alg[cfg], state_shape, u.dtype)
-    noise_c = noise.reshape(u.shape[0], kf, -1)
+    if noise_c is None:
+        noise = draw_step_noise(keys, kc, bank.alg[cfg], state_shape,
+                                u.dtype)
+        noise_c = sde.canonicalize(noise)
     u_sto = u_lin + apply_factored_ref(*_gat(bank, "B", cfg, kc, kf), eps_c) \
         + apply_factored_ref(*_gat(bank, "P_chol", cfg, kc, kf), noise_c)
     bmask = lambda m: m.reshape(-1, 1, 1)

@@ -52,7 +52,7 @@ def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0):
         u2, h2, k2, a2 = rf.round_update(
             state.u, state.hist, state.k, kc, state.cfg, state.fam,
             state.prec, state.keys, state.active, bank, eps_c,
-            state_shape=state_shape, kf=kf, fam_index=fam_index,
+            sde=sde, state_shape=state_shape, kf=kf, fam_index=fam_index,
             prec_index=prec_index, with_corrector=with_corrector,
             eps_n_c=eps_n_c)
         return DiffusionState(u=u2, hist=h2, k=k2, cfg=state.cfg,

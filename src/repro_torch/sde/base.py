@@ -15,17 +15,17 @@ family gives
 
 Coefficient shapes per family:
 
-  scalar : ()      applied as  c * u
-  block  : (k, k)  applied as  einsum('ij,bj...->bi...') (CLD: k = 2, the
-                   channel axis right after batch)
-
-The port carries the scalar and block families; the DCT-diagonal family
-arrives with BDM.
+  scalar   : ()          applied as  c * u
+  block    : (k, k)      applied as  einsum('ij,bj...->bi...') (CLD: k = 2,
+                         the channel axis right after batch)
+  freqdiag : freq_shape  applied as  IDCT(c * DCT(u)) over the spatial axes
+                         (BDM)
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +132,37 @@ class BlockOps(CoeffOps):
         return np.zeros((self.k, self.k))
 
 
+class FreqDiagOps(CoeffOps):
+    """Diagonal-in-DCT-basis coefficients (BDM): arrays broadcastable
+    against the frequency grid `freq_shape` (the data's spatial dims, with
+    a trailing 1 for the channel axis)."""
+
+    family = "freqdiag"
+
+    def __init__(self, freq_shape: Tuple[int, ...]):
+        self.freq_shape = tuple(freq_shape)
+
+    def mul(self, a, b):
+        return a * b
+
+    def inv(self, a):
+        return 1.0 / a
+
+    def transpose(self, a):
+        return a
+
+    def sqrt_psd(self, a):
+        return np.sqrt(a)
+
+    chol = sqrt_psd
+
+    def eye(self):
+        return np.ones(self.freq_shape)
+
+    def zeros(self):
+        return np.zeros(self.freq_shape)
+
+
 def _apply_factored_canonical(blk, diag, z: Tensor) -> Tensor:
     """The factored-coefficient core on a canonical (B, kf, D) state: the
     block contraction as one multiply-reduce over a broadcast of the block
@@ -151,6 +182,40 @@ def family_name(sde) -> str:
     """Canonical short name of an SDE family instance ('vpsde' | 'cld' |
     'bdm'): the request-surface key of multi-family serving."""
     return type(sde).__name__.lower()
+
+
+# ---------------------------------------------------------------------------
+# Orthonormal DCT-II helpers (BDM basis).  V^T = DCT, V = IDCT, V^T V = I.
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix of size (n, n), host float64: y = C @ x."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    c = np.cos(np.pi * (2 * i + 1) * k / (2 * n))
+    c = c * np.sqrt(2.0 / n)
+    c[0] *= np.sqrt(0.5)
+    return c.astype(np.float64)
+
+
+def _dct_axes(x: Tensor, axes: Sequence[int], inverse: bool) -> Tensor:
+    for ax in axes:
+        c = dct_matrix(x.shape[ax])
+        c = torch.as_tensor(c.T if inverse else c, dtype=x.dtype,
+                            device=x.device)
+        x = torch.tensordot(c, x.movedim(ax, 0), dims=1).movedim(0, ax)
+    return x
+
+
+def dct_nd(x: Tensor, axes: Sequence[int]) -> Tensor:
+    """Orthonormal DCT-II along `axes`, one axis at a time in the order
+    given (a matrix product per axis, as the JAX package's `dct_nd`)."""
+    return _dct_axes(x, axes, inverse=False)
+
+
+def idct_nd(x: Tensor, axes: Sequence[int]) -> Tensor:
+    """Inverse of `dct_nd` (the transposed matrices, same axis order)."""
+    return _dct_axes(x, axes, inverse=True)
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +248,10 @@ class LinearSDE:
 
     # ---- canonical packed layout --------------------------------------------
     # The serving engine keeps every slot's state in ONE layout, (B, k, D):
-    # k structural channel rows (VPSDE 1, CLD 2) by D = prod(data_shape)
+    # k structural channel rows (VPSDE/BDM 1, CLD 2) by D = prod(data_shape)
     # flattened data entries, in the basis where the family's coefficients
-    # act blockwise (pixel space for VPSDE/CLD).
+    # act blockwise (pixel space for VPSDE/CLD, the DCT frequency basis for
+    # BDM, which overrides these hooks).
 
     @property
     def packed_k(self) -> int:
@@ -195,7 +261,8 @@ class LinearSDE:
     # True when `canonicalize` is a pure reshape (VPSDE/CLD): i.i.d. normal
     # noise drawn directly in canonical (B, k, D) layout is then the same
     # bits as noise_like(state_shape) -> canonicalize, which lets the round
-    # kernel draw the Eq. 22 noise itself.
+    # kernel draw the Eq. 22 noise itself.  BDM's canonicalize is a DCT, so
+    # its noise is drawn in state space, transformed, and streamed in.
     canonical_noise_is_reshape = True
 
     def canonicalize(self, u: Tensor) -> Tensor:

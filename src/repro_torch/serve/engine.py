@@ -10,17 +10,21 @@ re-placed only when a new config grows it.
 A round is: the score-net eval (the DiT, whose attention is the hand-written
 flash kernel on the card), for corrector configs the Eq. 19a predictor
 iterate (the `round_predict` kernel) and a second eval, and one fused commit
-(the `round_fused` kernel, which also draws the Eq. 22 noise).  Nothing is
-read back to the host inside a round: the host shadow knows exactly when a
-slot retires (a slot admitted at k = 0 with NFE n retires after n rounds),
-so the only device->host traffic is each finished sample.
+(the `round_fused` kernel, which also draws the Eq. 22 noise, or for BDM
+reads it from the `step_noise` and `dct2` kernels).  BDM's canonical state
+holds DCT coefficients: its `canonicalize` / `decanonicalize` around every
+eval, on the prior and on each finished sample are the `dct2` kernel.
+Nothing is read back to the host inside a round: the host shadow knows
+exactly when a slot retires (a slot admitted at k = 0 with NFE n retires
+after n rounds), so the only device->host traffic is each finished
+sample.
 
 Samples are a pure function of (request seed, sampler config): admission
 draws the prior from PRNGKey(seed) and keys the step noise by
 fold_in(PRNGKey(seed), _NOISE_SALT), exactly as the JAX engine does, and
 every per-row computation is row-independent.
 
-This slice serves one SDE family, the "f32" precision class (the score
+An engine serves one SDE family (CLD or BDM), the "f32" precision class (the score
 net runs in its config's dtype — bf16 at full width — and returns f32
 eps), closed request lists (`serve`), on one device.
 """

@@ -11,8 +11,15 @@ Tiers (kernel vs plain version on the same card):
     uint32 bits exact; deterministic slots bitwise (same unfused f32
     arithmetic); u / hist within rtol = atol = 1e-5 (the in-kernel normals
     are within 2 ulp of the plain PRNG's emulated fused multiply-adds);
+  * round_fused in streamed-noise mode (BDM): bitwise against the plain
+    version on the same canonical noise; through the whole wrapper (the
+    kernel's own draw, the dct2 kernel, the commit) within rtol = atol =
+    1e-5 of the plain draw and plain DCT;
   * flash_attention: f32 within 2e-5, bf16 within one bf16 ulp of the
-    output (8e-3 relative at |o| of order 1).
+    output (8e-3 relative at |o| of order 1);
+  * dct2 / bdm_ei_update: within 1e-6 of max |x| (max |out| for the
+    update) of the plain version, whose products cuBLAS sums in another
+    order (f32 throughout: TF32 is off).
 """
 import pytest
 import torch
@@ -22,8 +29,11 @@ from repro_torch.core.coeffs import FactoredBank
 from repro_torch.kernels import cuda as kc
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.dct2 import ops as dct_ops
+from repro_torch.kernels.dct2 import ref as dct_ref
 from repro_torch.kernels.round_fused import ops as rf
 from repro_torch.kernels.round_fused import ref as rf_ref
+from repro_torch.sde import BDM, CLD
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +42,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -88,7 +99,7 @@ def test_round_fused_matches_plain_version(dev, D, cfgs, corr):
     x = _state(dev, cfgs, bank, D)
     args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["fam"],
             x["prec"], x["keys"], x["active"], bank, x["eps_c"])
-    kw = dict(state_shape=(2, D), kf=2, with_corrector=corr,
+    kw = dict(sde=CLD(), state_shape=(2, D), kf=2, with_corrector=corr,
               eps_n_c=x["eps_n_c"])
     kc.reset_launches()
     got = rf.round_update(*args, **kw)
@@ -123,11 +134,11 @@ def test_noise_bits_exact_and_normals_within_2_ulp(dev):
     keys = prng.to_int32_bits(keys64)
     kcs = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=dev)
     algs = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
-    bits, z = rf.noise_probe(keys, kcs, algs, kf=kf, D=D, n=n)
+    z, bits = rf.step_noise(keys, kcs, algs, n=n, with_bits=True)
     step = prng.fold_in(prng.fold_in(keys64, algs), kcs)
     f = torch.arange(n, device=dev)[None]
-    want_bits = prng.bits_at(step[:, None], f, n).reshape(B, kf, D)
-    want_z = rf_ref.draw_step_noise(keys, kcs, algs, (kf, D)).reshape(B, kf, D)
+    want_bits = prng.bits_at(step[:, None], f, n)
+    want_z = rf_ref.draw_step_noise(keys, kcs, algs, (kf, D)).reshape(B, n)
     assert torch.equal(prng.from_int32_bits(bits), want_bits)
     ulp = (z.view(torch.int32).long() - want_z.view(torch.int32).long()).abs()
     assert int(ulp.max()) <= 2
@@ -163,7 +174,90 @@ def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("cfgs,corr", [([0, 3, 2, 3], False),
+                                       ([1, 2, 3, 1], True)])
+def test_round_fused_streamed_noise_matches_plain_version(dev, cfgs, corr):
+    """BDM's mode: K = kf = 1, real pool rows, canonical noise streamed in."""
+    shape = (32, 32, 3)
+    D = 3072
+    bank = _bank(dev, D, K=1, PB=5)
+    x = _state(dev, cfgs, bank, D, K=1)
+    x["eps_c"] = x["eps_c"][:, :1].contiguous()
+    x["eps_n_c"] = x["eps_n_c"][:, :1].contiguous()
+    args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["fam"],
+            x["prec"], x["keys"], x["active"], bank, x["eps_c"])
+    sde = BDM(data_shape=shape)
+    alg = bank.alg[x["cfg"]]
+    noise = rf_ref.draw_step_noise(x["keys"], x["kc"], alg, shape)
+    noise_c = dct_ref.dct2_ref(noise).reshape(4, 1, D)
+    kw = dict(sde=sde, state_shape=shape, kf=1, with_corrector=corr,
+              eps_n_c=x["eps_n_c"])
+    want = rf_ref.round_update_ref(*args, noise_c=noise_c, **kw)
+
+    ints = rf._stage_ints(x["k"], x["kc"], x["cfg"], x["fam"], x["prec"],
+                          x["active"], bank, fam_index=0, prec_index=0,
+                          with_corrector=corr)
+    blks, dis = rf._stage_factors(bank, x["cfg"], x["kc"], 1, corr)
+    got = rf.round_fused(ints, x["keys"], blks, dis, bank.diag, x["u"],
+                         x["hist"], x["eps_c"], x["eps_n_c"], noise_c,
+                         kf=1, n=D, with_corrector=corr)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3].bool(), want[3])
+
+    kc.reset_launches()
+    full = rf.round_update(*args, **kw)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    assert n["step_noise"] == n["dct2"] == n["round_fused"] == 1
+    assert torch.equal(full[2], want[2]) and torch.equal(full[3], want[3])
+    for a, b in zip(full[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 32, 3), (4, 8, 8, 3),
+                                   (2, 64, 48, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dct2_matches_plain_version(dev, shape, inverse):
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to(dev)
+    kc.reset_launches()
+    got = dct_ops.dct2(x, inverse=inverse)
+    want = (dct_ref.idct2_ref if inverse else dct_ref.dct2_ref)(x)
+    torch.cuda.synchronize()
+    assert kc.launches()["dct2"] == 1
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(x.abs().max())
+
+
+@pytest.mark.parametrize("q", [1, 2])
+def test_bdm_ei_update_matches_plain_version(dev, q):
+    g = torch.Generator().manual_seed(q)
+    B, H, W, Ch = 4, 32, 32, 3
+    u = torch.randn(B, H, W, Ch, generator=g).to(dev)
+    eps = torch.randn(q, B, H, W, Ch, generator=g).to(dev)
+    psi = torch.rand(H, W, 1, generator=g).to(dev)
+    C = torch.randn(q, H, W, 1, generator=g).to(dev)
+    kc.reset_launches()
+    got = dct_ops.bdm_ei_update(u, eps, psi, C)
+    want = dct_ref.bdm_ei_update_ref(u, eps, psi, C)
+    torch.cuda.synchronize()
+    assert kc.launches()["bdm_ei_update"] == 1
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max())
+
+
+def test_dct2_refuses_what_it_does_not_take(dev):
+    with pytest.raises(ValueError):
+        dct_ops.dct2(torch.zeros(1, 65, 8, 3, device=dev))
+    with pytest.raises(TypeError):
+        dct_ops.dct2(torch.zeros(1, 8, 8, 3, device=dev,
+                                 dtype=torch.float64))
+    with pytest.raises(ValueError):
+        dct_ops.dct2(torch.zeros(1, 8, 8, 3, device=dev).transpose(1, 2))
+
+
 def test_both_libraries_build(dev):
-    reports = kc.build_all(["round_fused", "attention"])
-    assert set(reports) == {"round_fused", "attention"}
+    reports = kc.build_all(["round_fused", "attention", "dct2"])
+    assert set(reports) == {"round_fused", "attention", "dct2"}
     assert all("error" not in r for r in reports.values())

@@ -1,0 +1,107 @@
+"""Parity of the port's 2-D DCT and fused BDM update with the JAX package,
+on CPU tensors (the plain versions; the CUDA kernels are held against them
+on the card by chip_smoke.py and tests/test_torch_cuda.py).
+
+Inputs are made with numpy from a seed.  The JAX side runs both its plain
+reference (`dct_nd`, `bdm_ei_update_ref`) and its Pallas kernels in
+interpret mode.
+
+Tiers:
+  * the DCT matrix: BITWISE (the same float64 numpy in both packages);
+  * dct2 / idct2 / bdm_ei_update: max |port - jax| <= 1e-6 of max |x|.
+    The sums run in different orders (torch's and XLA's matrix products,
+    and the Pallas kernel multiplies along W first), so the results agree
+    to f32 rounding, not bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.dct2 import kernel as jkernel
+from repro.kernels.dct2 import ref as jref
+from repro.sde.base import dct_matrix as jdct_matrix
+from repro_torch.kernels.dct2 import ops as tops
+from repro_torch.sde.base import dct_matrix as tdct_matrix
+
+SHAPES = [(2, 32, 32, 3), (2, 8, 8, 3)]
+TOL = 1e-6
+
+
+def _close(got, want, scale, what):
+    err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    assert err <= TOL * scale, f"{what}: {err:.3e} > {TOL} x {scale:.3e}"
+
+
+@pytest.mark.parametrize("n", [8, 32, 64])
+def test_dct_matrix_bitwise(n):
+    np.testing.assert_array_equal(tdct_matrix(n), jdct_matrix(n))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dct2_matches_jax_and_pallas_interpret(shape, inverse):
+    x = np.random.default_rng(sum(shape)).standard_normal(shape) \
+        .astype(np.float32)
+    got = tops.dct2(torch.from_numpy(x), inverse=inverse).numpy()
+    jx = jnp.asarray(x)
+    want = (jref.idct2_ref if inverse else jref.dct2_ref)(jx)
+    pallas = jkernel.dct2(jx, inverse=inverse, interpret=True)
+    scale = float(np.abs(x).max())
+    _close(got, want, scale, "vs JAX dct_nd")
+    _close(got, pallas, scale, "vs Pallas interpret")
+    # orthonormal: the inverse undoes the transform
+    back = tops.dct2(torch.from_numpy(got), inverse=not inverse).numpy()
+    _close(back, x, scale, "round trip")
+
+
+@pytest.mark.parametrize("q", [1, 2])
+def test_bdm_ei_update_matches_jax_and_pallas_interpret(q):
+    rng = np.random.default_rng(q)
+    B, H, W, Ch = 2, 8, 8, 3
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    u, eps = f32(B, H, W, Ch), f32(q, B, H, W, Ch)
+    psi, C = f32(H, W, 1), f32(q, H, W, 1)
+    got = tops.bdm_ei_update(*map(torch.from_numpy, (u, eps, psi, C)))
+    jargs = [jnp.asarray(a) for a in (u, eps, psi, C)]
+    want = jref.bdm_ei_update_ref(*jargs)
+    pallas = jkernel.bdm_ei_update(*jargs, interpret=True)
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(got.numpy(), want, scale, "vs JAX ref")
+    _close(got.numpy(), pallas, scale, "vs Pallas interpret")
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """Dispatch is by device alone: a CPU tensor runs the plain version,
+    and the kernel wrappers refuse anything but a CUDA tensor."""
+    def boom(*a, **k):
+        raise AssertionError("CPU tensors must not reach the kernel")
+
+    x = torch.zeros(1, 8, 8, 3)
+    monkeypatch.setattr(tops, "dct2_kernel", boom)
+    monkeypatch.setattr(tops, "bdm_ei_update_kernel", boom)
+    tops.dct2(x)
+    tops.bdm_ei_update(x, x[None], torch.ones(8, 8, 1),
+                       torch.ones(1, 8, 8, 1))
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.dct2_kernel(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.bdm_ei_update_kernel(x, x[None], torch.ones(8, 8, 1),
+                                  torch.ones(1, 8, 8, 1))
+
+
+@pytest.mark.parametrize("data_shape", [(16,), (16, 3)])
+def test_non_image_shapes_are_refused(data_shape):
+    """The wrappers take (B, H, W, Ch) images only, on either device, so a
+    BDM over 1-D data has no second, plain DCT path in its engine hooks."""
+    from repro_torch.sde.bdm import BDM
+    sde = BDM(data_shape=data_shape)
+    u = torch.zeros((2,) + data_shape)
+    with pytest.raises(ValueError, match=r"\(B, H, W, Ch\)"):
+        sde.canonicalize(u)
+    with pytest.raises(ValueError, match=r"\(B, H, W, Ch\)"):
+        tops.bdm_ei_update(u, u[None], torch.ones(16, 1), torch.ones(1, 16, 1))
+    # to_freq stays on the plain dct_nd over the data's spatial axes
+    assert sde.to_freq(u).shape == u.shape

@@ -37,6 +37,7 @@ from repro_torch import random as prng
 from repro_torch.core.coeffs import FactoredBank as TBank
 from repro_torch.kernels.round_fused import ops as trf
 from repro_torch.kernels.round_fused import ref as tref
+from repro_torch.sde import CLD as TCLD
 
 DATA = (4, 4, 3)
 D = 48
@@ -137,8 +138,9 @@ def test_round_update_matches_jax(banks, case):
     t = _torch_args(x)
     got = trf.round_update(
         t["u"], t["hist"], t["k"], t["kc"], t["cfg"], t["fam"], t["prec"],
-        t["keys"], t["active"], tbank, t["eps_c"], state_shape=(2,) + DATA,
-        kf=KF, with_corrector=corr, eps_n_c=t["eps_n_c"])
+        t["keys"], t["active"], tbank, t["eps_c"], sde=TCLD(),
+        state_shape=(2,) + DATA, kf=KF, with_corrector=corr,
+        eps_n_c=t["eps_n_c"])
     for name, a, b in zip(("u", "hist", "k", "active"), want, got):
         a, b = np.asarray(a), b.numpy()
         if name in ("k", "active"):
@@ -216,7 +218,7 @@ def test_cpu_tensors_never_reach_the_kernel_and_cuda_ones_never_the_ref(
                       x["eps_c"], kf=KF)
     trf.round_update(x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["fam"],
                      x["prec"], x["keys"], x["active"], tbank, x["eps_c"],
-                     state_shape=(2,) + DATA, kf=KF)
+                     sde=TCLD(), state_shape=(2,) + DATA, kf=KF)
 
 
 def test_fused_round_cost_matches_jax():
