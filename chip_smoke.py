@@ -3,24 +3,32 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from src/repro_torch/csrc, then drives the
-two main paths through `repro_torch.serve.DiffusionEngine`, each at full
-width with random weights from a seed (DiT img 32 / patch 2 / d_model 768 /
-24 layers / 12 heads, bf16):
+three main paths through the port's engines, each at full width with
+random weights from a seed:
 
-  * `cifar10-cld` (state (B, 2, 32, 32, 3)): round_fused with in-kernel
-    noise, round_predict (kf = 2), flash_attention;
-  * `cifar10-bdm` (state (B, 32, 32, 3), canonical DCT coefficients):
-    dct2 around every eval, step_noise + dct2 + round_fused with streamed
-    noise, round_predict (kf = 1), flash_attention.
+  * `cifar10-cld` (DiffusionEngine; DiT img 32 / patch 2 / d_model 768 /
+    24 layers / 12 heads, bf16; state (B, 2, 32, 32, 3)): round_fused with
+    in-kernel noise, round_predict (kf = 2), flash_attention (DiT form);
+  * `cifar10-bdm` (the same DiT over a (B, 32, 32, 3) state held as DCT
+    coefficients): dct2 around every eval, step_noise + dct2 + round_fused
+    with streamed noise, round_predict (kf = 1), flash_attention;
+  * `gemma3-1b` (TokenEngine; 26 layers, d_model 1152, 4 query heads over 1
+    KV head of width 256, vocab 262144, bf16, window 512 on 5 layers of 6;
+    batch 4, max_len 1024; 8 requests with prompts of 96 and 640 tokens,
+    48 new tokens each): flash_attention in its causal/window/GQA form for
+    every prefill, decode_attention (split pass and merge pass) in every
+    layer of every decode round.
 
 Each path is served once with the launch counts set to 0 just before and
 read just after; every kernel of the path must have launched, and the
-samples must be finite.  Then each kernel is held against its plain
+results must be well formed (finite samples; max_new token ids in
+[0, vocab) per request).  Then each kernel is held against its plain
 PyTorch version at the path's shapes (bdm_ei_update, which no path runs,
 on its own), timed beside its plain version, a library call where one
-computes the same function, and its bound; the reduced configs' samples on
-the card are checked against the plain version on the CPU; and one serve
-of each path runs under a CUPTI trace.  It prints:
+computes the same function, and its bound; the reduced configs on the card
+are checked against the plain versions on the CPU (samples; gemma3-1b's
+logits and token streams); and one serve of each path runs under a CUPTI
+trace.  It prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -56,6 +64,11 @@ PATH_KERNELS = {
     "cifar10-bdm": ("dct2", "step_noise", "round_fused", "round_predict",
                     "flash_attention"),
 }
+LM_ARCH = "gemma3-1b"
+LM_LENS = (96, 640)             # prompt lengths, alternating by request
+LM_MAX_NEW, LM_MAX_LEN = 48, 1024
+LM_KERNELS = ("flash_attention", "decode_attention", "decode_attention_merge")
+LIBRARIES = ("round_fused", "attention", "dct2", "decode_attention")
 
 
 class Failed(Exception):
@@ -277,13 +290,14 @@ def drive_path(name: str, dev, mix, card: str):
     return spec, net, engine, counts
 
 
-def profile_serve(name: str, engine, mix, out: Path) -> None:
-    """Where the time goes: one more serve of the mix under a CUPTI trace;
-    the device time by kernel lands in `out`."""
+def profile_serve(name: str, serve, out: Path, unit: str) -> None:
+    """Where the time goes: one more serve under a CUPTI trace (`serve()`
+    returns how many `unit`s it produced); the device time by kernel lands
+    in `out`."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.serve(requests(mix, 2000))
+        n = serve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = kernel_events(prof)
@@ -291,9 +305,10 @@ def profile_serve(name: str, engine, mix, out: Path) -> None:
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e6
-    log(f"[{name}] profile: serve wall {wall:.4f}s, device busy {busy:.4f}s "
-        f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% "
-        f"idle), {len(events)} device events")
+    log(f"[{name}] profile: serve wall {wall:.4f}s, {n / wall:.3f} {unit}/s "
+        f"under the trace, device busy {busy:.4f}s ({100 * busy / wall:.1f}% "
+        f"busy, {100 - 100 * busy / wall:.1f}% idle), {len(events)} device "
+        f"events")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for kname, us in top[:8]:
         log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e6 / busy:5.1f}%  "
@@ -480,8 +495,8 @@ def attention_record(path, spec, net, counts, gen, dev):
     with torch.no_grad():
         eps_kernel = net(x, tt)
         orig = attn_ops.attention
-        attn_ops.attention = lambda q_, k_, v_, causal: attention_ref(
-            q_, k_, v_, causal=causal)
+        attn_ops.attention = lambda q_, k_, v_, **kw: attention_ref(
+            q_, k_, v_, **kw)
         try:
             eps_plain = net(x, tt)
         finally:
@@ -605,6 +620,271 @@ def reduced_check(name, mix):
           "the CPU")
 
 
+def lm_requests(vocab: int, seed0: int, n: int = N_REQUESTS, lens=None,
+                max_new=None):
+    """n token requests (seeds 0..n-1) with prompts of random ids drawn
+    from numpy seed `seed0`, lengths cycling through `lens` (default
+    LM_LENS), max_new tokens each (default LM_MAX_NEW)."""
+    from repro_torch.serve import ServeRequest
+    lens = LM_LENS if lens is None else lens
+    max_new = LM_MAX_NEW if max_new is None else max_new
+    rng = np.random.default_rng(seed0)
+    return [ServeRequest(rid=i, workload="token", seed=i, max_new=max_new,
+                         tokens=rng.integers(2, vocab, size=lens[i % len(lens)])
+                         .astype(np.int32)) for i in range(n)]
+
+
+def drive_lm_path(dev, card: str):
+    """The token path: full-width gemma3-1b on a batch-4 TokenEngine (no
+    eos, so every request runs its budget), a warm-up serve, the launch
+    counts set to 0, one measured serve, the counts read right after.
+    Returns (arch, engine, counts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import TokenEngine
+    t0 = time.perf_counter()
+    arch = Arch(get_arch(LM_ARCH))
+    params = arch.init(seed=SEED, device=dev)
+    engine = TokenEngine(arch, params, batch_size=BATCH, max_len=LM_MAX_LEN,
+                         eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["ln_f"]]) + \
+        sum(t.numel() for lp in params["layers"] for t in
+            [lp["ln_attn"], lp["ln_mlp"], *lp["attn"].values(),
+             *lp["mlp"].values()])
+    vocab = arch.cfg.vocab
+    log(f"[{LM_ARCH}] engine: {n_params} parameters drawn on the card, "
+        f"caches {BATCH} x {LM_MAX_LEN}: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    engine.serve(lm_requests(vocab, 1000))          # warm-up (other prompts)
+    torch.cuda.synchronize()
+    log(f"[{LM_ARCH}] warm-up serve: {time.perf_counter() - t0:.2f}s")
+    rounds0, prefills0, toks0 = (engine.n_decode_steps,
+                                 engine.n_prefill_calls, engine.n_tokens_out)
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(lm_requests(vocab, SEED))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    n_tok = engine.n_tokens_out - toks0
+    log(f"[{LM_ARCH}] serve: {len(results)} requests, {n_tok} tokens in "
+        f"{dt:.4f}s, {engine.n_decode_steps - rounds0} decode rounds, "
+        f"{engine.n_prefill_calls - prefills0} prefill calls, "
+        f"{n_tok / dt:.3f} tokens/s ({card}); launches {counts}")
+    check(sorted(results) == list(range(N_REQUESTS)),
+          f"{LM_ARCH}: missing results")
+    for rid, ids in results.items():
+        check(len(ids) == LM_MAX_NEW, f"{LM_ARCH}: request {rid} returned "
+              f"{len(ids)} tokens, expected {LM_MAX_NEW}")
+        check(bool(((ids >= 0) & (ids < vocab)).all()),
+              f"{LM_ARCH}: request {rid} has ids outside [0, {vocab})")
+    for k in LM_KERNELS:
+        check(counts.get(k, 0) > 0, f"{LM_ARCH}: {k} never launched on the "
+              "path")
+    return arch, engine, counts
+
+
+def causal_pairs(Sq: int, Sk: int, window, q_offset: int = 0) -> int:
+    """(query, key) pairs the causal/window mask keeps: the work prefill
+    attention needs on these inputs."""
+    n = 0
+    for i in range(Sq):
+        qp = q_offset + i
+        lo = 0 if window is None else max(0, qp - window + 1)
+        n += max(0, min(qp, Sk - 1) - lo + 1)
+    return n
+
+
+def lm_records(engine, counts, gen, dev):
+    """decode_attention and the causal flash_attention at the token path's
+    shapes (bf16; window 512 and global), each against its plain version
+    (at most 2 bf16 ulp; f32 inputs within 1e-5 / 2e-5) and timed beside
+    it, its bound and SDPA with the same boolean mask."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    cfg = engine.arch.cfg
+    Hq, Hkv, Dh, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, LM_MAX_LEN
+    rep = Hq // Hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    bf = torch.bfloat16
+    records = []
+
+    # decode: the rows mid-serve, 24 tokens past prompts of 96 and 640
+    lens = [LM_LENS[b % 2] + 24 for b in range(BATCH)]
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q32, k32, v32 = rnd(BATCH, Hq, Dh), rnd(BATCH, S, Hkv, Dh), \
+        rnd(BATCH, S, Hkv, Dh)
+    q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+    for window in (512, None):
+        got = dec_ops.decode_attention(q, k, v, cl, window=window)
+        want = decode_attention_ref(q, k, v, cl, window=window)
+        got32 = dec_ops.decode_attention(q32, k32, v32, cl, window=window)
+        want32 = decode_attention_ref(q32, k32, v32, cl, window=window)
+        torch.cuda.synchronize()
+        ulp, err32 = ulp_err(got, want), max_err(got32, want32)
+        log(f"[{LM_ARCH}] decode_attention (window {window}) vs plain: bf16 "
+            f"max {ulp:.1f} bf16 ulp (tol 2), max abs err "
+            f"{max_err(got, want):.3e}; f32 {err32:.3e} (tol 1e-5)")
+        check(ulp <= 2 and err32 <= 1e-5,
+              f"decode_attention (window {window}) beyond tolerance")
+        n_keys = sum(min(n, window or n) for n in lens)
+        nbytes = 2 * (q.numel() + 2 * n_keys * Hkv * Dh + q.numel()) \
+            + 4 * BATCH
+        ops = 4 * n_keys * rep * Hkv * Dh
+        keep = torch.arange(S, device=dev)[None] < cl[:, None]
+        if window is not None:
+            keep &= torch.arange(S, device=dev)[None] >= cl[:, None] - window
+        qh = q[:, :, None]                                  # (B, Hq, 1, Dh)
+        kh = k.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        vh = v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        mask = keep[:, None, None, :]
+        split_ms = time_ms(lambda: dec_ops.decode_attention(
+            q, k, v, cl, window=window), kernel="decode_split_kernel")[0]
+        merge_ms = time_ms(lambda: dec_ops.decode_attention(
+            q, k, v, cl, window=window), kernel="decode_merge_kernel")[0]
+        log(f"  decode_attention passes: split {split_ms:.5f} ms, merge "
+            f"{merge_ms:.5f} ms (median launch durations)")
+        rec = timed_record(
+            "decode_attention" + ("[global]" if window is None else ""),
+            LM_ARCH, "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:93",
+            counts.get("decode_attention", 0), max_err(got, want),
+            lambda: dec_ops.decode_attention(q, k, v, cl, window=window), "",
+            lambda: decode_attention_ref(q, k, v, cl, window=window),
+            nbytes, ops, BF16_FLOPS,
+            library_fn=lambda: sdpa(qh, kh, vh, attn_mask=mask))
+        rec.update(launches_merge=counts.get("decode_attention_merge", 0),
+                   split_ms=split_ms, merge_ms=merge_ms)
+        records.append(rec)
+
+    # prefill: one 640-token prompt into the 1024-long cache (G = 1, as the
+    # alternating prompt lengths make every admission wave)
+    L = LM_LENS[1]
+    q32, k32, v32 = rnd(1, L, Hq, Dh), rnd(1, S, Hkv, Dh), rnd(1, S, Hkv, Dh)
+    q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+    for window in (512, None):
+        kw = dict(causal=True, window=window, q_offset=0)
+        got = attn_ops.attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        got32 = attn_ops.attention(q32, k32, v32, **kw)
+        want32 = attention_ref(q32, k32, v32, **kw)
+        torch.cuda.synchronize()
+        ulp, err32 = ulp_err(got, want), max_err(got32, want32)
+        log(f"[{LM_ARCH}] flash_attention causal (window {window}) vs plain: "
+            f"bf16 max {ulp:.1f} bf16 ulp (tol 2), max abs err "
+            f"{max_err(got, want):.3e}; f32 {err32:.3e} (tol 2e-5)")
+        check(ulp <= 2 and err32 <= 2e-5,
+              f"causal flash_attention (window {window}) beyond tolerance")
+        pairs = causal_pairs(L, S, window)
+        # q and o, and the keys/values up to the last query (the causal
+        # mask hides the rest of the cache)
+        nbytes = 2 * (2 * q.numel() + 2 * L * Hkv * Dh)
+        ops = 4 * pairs * Hq * Dh
+        qp = torch.arange(L, device=dev)[:, None]
+        kp = torch.arange(S, device=dev)[None]
+        keep = kp <= qp
+        if window is not None:
+            keep &= kp > qp - window
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        vh = v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        records.append(timed_record(
+            "flash_attention[causal" + (",global]" if window is None
+                                        else ",window]"),
+            LM_ARCH, "src/repro_torch/csrc/attention.cu",
+            "src/repro/kernels/attention/kernel.py:109",
+            counts.get("flash_attention", 0), max_err(got, want),
+            lambda: attn_ops.attention(q, k, v, **kw), "flash_lm_kernel",
+            lambda: attention_ref(q, k, v, **kw), nbytes, ops, BF16_FLOPS,
+            library_fn=lambda: sdpa(qh, kh, vh, attn_mask=keep)))
+    return records
+
+
+def lm_model_check(engine, gen, dev):
+    """Full-width gemma3-1b, bf16: the last prompt position's logits and
+    one per-slot decode step with the kernels against the same model with
+    the plain attention versions (tol 5e-2 of max |logits|: bf16 rounding
+    through 26 layers)."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    arch, params = engine.arch, engine.params
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        2, arch.cfg.vocab, size=(2, LM_LENS[1]))).to(dev)
+    pos = torch.tensor([LM_LENS[1], LM_LENS[1] - 3], dtype=torch.int32,
+                       device=dev)
+
+    def run():
+        logits, caches = arch.prefill(params, {"tokens": toks}, LM_MAX_LEN)
+        nxt = torch.argmax(logits, -1)[:, None]
+        logits2, _ = arch.decode(params, nxt, caches, pos)
+        return logits.float(), logits2.float()
+
+    kern = run()
+    orig = attn_ops.attention, dec_ops.decode_attention
+    attn_ops.attention = lambda q_, k_, v_, **kw: attention_ref(q_, k_, v_,
+                                                                **kw)
+    dec_ops.decode_attention = decode_attention_ref
+    try:
+        plain = run()
+    finally:
+        attn_ops.attention, dec_ops.decode_attention = orig
+    torch.cuda.synchronize()
+    for what, a, b in zip(("prefill", "decode"), kern, plain):
+        scale = float(b.abs().max())
+        err = max_err(a, b) / scale
+        log(f"[{LM_ARCH}] bf16 {what} logits, kernels vs plain attention: "
+            f"max abs err / max|logits| = {err:.3e} (tol 5e-2), max|logits| "
+            f"{scale:.3e}")
+        check(math.isfinite(scale) and err <= 5e-2,
+              f"{LM_ARCH}: {what} logits beyond tolerance")
+
+
+def reduced_lm_check():
+    """The reduced gemma3-1b (f32) with the same seeded weights on the card
+    (kernels) and on the CPU (plain versions): prefill and per-slot decode
+    logits within 1e-4 of max |logits|, and a TokenEngine serve (batch 3,
+    prompts of 20 and 9 tokens against the reduced window of 16) giving
+    equal token streams."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import TokenEngine
+    arch = Arch(get_arch(LM_ARCH, reduced=True))
+    toks = np.random.default_rng(4).integers(2, arch.cfg.vocab, size=(2, 20))
+    logits, streams = {}, {}
+    for d in ("cuda", "cpu"):
+        eng = TokenEngine(arch, arch.init(seed=5, device="cpu"), batch_size=3,
+                          max_len=32, device=d)
+        t = torch.from_numpy(toks).to(d)
+        lg, caches = arch.prefill(eng.params, {"tokens": t}, 32)
+        pos = torch.tensor([20, 14], dtype=torch.int32, device=d)
+        out = [lg]
+        for _ in range(3):
+            lg, caches = arch.decode(eng.params, torch.argmax(
+                out[0], -1)[:, None].to(torch.int32), caches, pos)
+            out.append(lg)
+            pos = pos + 1
+        logits[d] = [x.float().cpu() for x in out]
+        streams[d] = eng.serve(lm_requests(arch.cfg.vocab, 50, n=7,
+                                           lens=(20, 9), max_new=8))
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(logits["cuda"], logits["cpu"]))
+    same = all(np.array_equal(streams["cuda"][r], streams["cpu"][r])
+               for r in streams["cpu"])
+    log(f"reduced {LM_ARCH}, card (kernels) vs CPU (plain): logits max abs "
+        f"err / max|logits| = {rel:.3e} (tol 1e-4); token streams of "
+        f"{len(streams['cpu'])} requests equal: {same}")
+    check(rel <= 1e-4, f"reduced {LM_ARCH}: logits on the card disagree")
+    check(same and sorted(streams["cuda"]) == list(range(7)),
+          f"reduced {LM_ARCH}: token streams on the card differ from the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -626,7 +906,7 @@ def main() -> int:
 
     # ---- 1. build every kernel, in parallel ------------------------------
     t0 = time.perf_counter()
-    reports = kc.build_all(["round_fused", "attention", "dct2"])
+    reports = kc.build_all(LIBRARIES)
     log(f"build: {time.perf_counter() - t0:.2f}s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -647,8 +927,20 @@ def main() -> int:
     paths = {}
     for name in PATH_KERNELS:
         paths[name] = drive_path(name, dev, mix, card)
-        profile_serve(name, paths[name][2], mix,
-                      out_dir / f"serve_profile_{name.split('-')[1]}.txt")
+        eng = paths[name][2]
+        profile_serve(name, lambda: len(eng.serve(requests(mix, 2000))),
+                      out_dir / f"serve_profile_{name.split('-')[1]}.txt",
+                      "samples")
+    _, lm_engine, lm_counts = drive_lm_path(dev, card)
+    vocab = lm_engine.arch.cfg.vocab
+
+    def lm_serve():
+        n0 = lm_engine.n_tokens_out
+        lm_engine.serve(lm_requests(vocab, 2000))
+        return lm_engine.n_tokens_out - n0
+
+    profile_serve(LM_ARCH, lm_serve, out_dir / "serve_profile_lm.txt",
+                  "tokens")
 
     # ---- 4. each kernel against its plain version, timed -----------------
     records = []
@@ -671,9 +963,17 @@ def main() -> int:
         lambda: rf_ref.draw_step_noise(keys, kcs, algs, (n,)),
         4 * (BATCH * (2 + 2) + BATCH * n), 0, F32_FLOPS))
 
-    # ---- 5. reduced configs: samples on the card vs the plain version ----
+    records += lm_records(lm_engine, lm_counts, gen, dev)
+    lm_model_check(lm_engine, gen, dev)
+    names = [r["name"] for r in records]
+    check("flash_attention" in names and any(
+        n.startswith("flash_attention[causal") for n in names),
+        "the kernels record lacks a form of flash_attention")
+
+    # ---- 5. reduced configs: the card vs the plain version on the CPU ----
     for name in PATH_KERNELS:
         reduced_check(name, mix)
+    reduced_lm_check()
 
     log(smi())
     print(json.dumps({"kernels": records}), flush=True)

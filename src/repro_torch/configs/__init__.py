@@ -1,13 +1,28 @@
-"""Paper diffusion configs: `get_diffusion(name, reduced=False)`."""
+"""Model and paper configs: `get_arch(name, reduced=False)` for the token
+archs ported so far, `get_diffusion(name, reduced=False)` for the paper's
+diffusion configs."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
+
+ARCH_MODULES: Dict[str, str] = {
+    "gemma3-1b": "gemma3_1b",
+}
+
+ARCH_IDS: List[str] = list(ARCH_MODULES)
 
 DIFFUSION_MODULES: Dict[str, str] = {
     "cifar10-cld": "paper_cld",
     "cifar10-bdm": "paper_bdm",
 }
+
+
+def get_arch(name: str, reduced: bool = False, **kw):
+    if name not in ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_IDS}")
+    mod = importlib.import_module(f".{ARCH_MODULES[name]}", __package__)
+    return mod.make(reduced=reduced, **kw)
 
 
 def get_diffusion(name: str, reduced: bool = False, **kw):

@@ -1,15 +1,21 @@
 """Attention dispatch: a CPU tensor runs the plain version, a CUDA tensor
-the hand-written flash kernel (`csrc/attention.cu`).
+one of the two forms of the hand-written flash kernel
+(`csrc/attention.cu`), each launch counted as `flash_attention`:
 
-The kernel covers the DiT form — non-causal, no window, Hq == Hkv,
-q_offset 0, head width 32, 64 or 128, f32 or bf16.  A CUDA call outside
-that form raises: it is never sent to the plain version.
+  * the DiT form — non-causal, no window, Hq == Hkv, Sq == Sk, q_offset 0,
+    head width 32, 64 or 128;
+  * the LM prefill form — causal, an optional window, GQA (Hkv dividing
+    Hq), Sq != Sk, q_offset an int or a device scalar, head width 16, 32,
+    64, 128 or 256.
+
+Both take f32 or bf16.  A CUDA call outside these forms raises: it is never
+sent to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -20,18 +26,25 @@ Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_WIDTHS = (32, 64, 128)
+LM_HEAD_WIDTHS = (16, 32, 64, 128, 256)
+_VP, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, B, S, H, Dh, dtype, scale, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [_VP] * 4 + [_I] * 5 + [ctypes.c_float, _VP]
+# q k v o q_off_ptr | q_off B Sq Sk Hq Hkv Dh window dtype | scale stream
+_LM_ARGTYPES = [_VP] * 5 + [_I] * 9 + [ctypes.c_float, _VP]
 
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """The CUDA kernel: q/k/v (B, S, H, Dh) on one card, same dtype ->
-    (B, S, H, Dh) in that dtype."""
-    B, S, H, Dh = q.shape
+def _check_dtype(q: Tensor) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in "
                         f"{list(_DTYPES)}")
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """The CUDA kernel, DiT form: q/k/v (B, S, H, Dh) on one card, same
+    dtype -> (B, S, H, Dh) in that dtype."""
+    B, S, H, Dh = q.shape
+    _check_dtype(q)
     if Dh not in _HEAD_WIDTHS:
         raise ValueError(f"flash_attention: head width {Dh} not in "
                          f"{_HEAD_WIDTHS}")
@@ -47,16 +60,63 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     return out
 
 
+def flash_attention_causal(q: Tensor, k: Tensor, v: Tensor, *,
+                           window: Optional[int] = None,
+                           q_offset: Union[int, Tensor] = 0) -> Tensor:
+    """The CUDA kernel, LM prefill form: causal attention of q (B, Sq, Hq,
+    Dh) over k/v (B, Sk, Hkv, Dh), query i at absolute position q_offset +
+    i, keys in (q_pos - window, q_pos] when a window is given."""
+    B, Sq, Hq, Dh = q.shape
+    _check_dtype(q)
+    if Dh not in LM_HEAD_WIDTHS:
+        raise ValueError(f"flash_attention: head width {Dh} not in "
+                         f"{LM_HEAD_WIDTHS} (causal form)")
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != Dh:
+        raise ValueError(f"flash_attention: k of shape {tuple(k.shape)} "
+                         f"for q of shape {tuple(q.shape)}")
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"flash_attention: Hkv {Hkv} does not divide Hq "
+                         f"{Hq}")
+    cuda.require(q, "q", q.dtype)
+    for name, t in (("k", k), ("v", v)):
+        cuda.require(t, name, q.dtype, (B, Sk, Hkv, Dh), q.device)
+    w = 0 if window is None else int(window)
+    if window is not None and w <= 0:
+        raise ValueError(f"flash_attention: window {window} must be >= 1")
+    q_off_ptr, q_off = 0, 0
+    if torch.is_tensor(q_offset):
+        if q_offset.numel() != 1:
+            raise ValueError("flash_attention: q_offset must be a scalar")
+        q_off_t = q_offset.to(device=q.device, dtype=torch.int32).reshape(1)
+        q_off_ptr = q_off_t.data_ptr()
+    else:
+        q_off = int(q_offset)
+    fn = cuda.function("attention", "repro_flash_attention_lm", _LM_ARGTYPES)
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_off_ptr, q_off, B, Sq, Sk, Hq, Hkv, Dh, w, _DTYPES[q.dtype],
+            1.0 / math.sqrt(Dh), cuda.stream_ptr(q))
+    cuda.check("attention", rc, "flash_attention (causal)")
+    cuda.count_launch("flash_attention")
+    return out
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-              window: Optional[int] = None, q_offset: int = 0) -> Tensor:
+              window: Optional[int] = None,
+              q_offset: Union[int, Tensor] = 0) -> Tensor:
     """Multi-head attention, q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh)."""
     if cuda.device_of(q) == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
-    if causal or window is not None or q_offset != 0 \
+    if causal:
+        return flash_attention_causal(q, k, v, window=window,
+                                      q_offset=q_offset)
+    if window is not None or not (isinstance(q_offset, int) and q_offset == 0) \
             or q.shape != k.shape or k.shape != v.shape:
         raise NotImplementedError(
-            "the CUDA attention kernel covers the non-causal, window-free, "
-            "Hq == Hkv, Sq == Sk form (the DiT); the causal/window/GQA form "
-            "is not ported yet")
+            "the CUDA attention kernel covers the causal form (LM prefill) "
+            "and the non-causal, window-free, Hq == Hkv, Sq == Sk form (the "
+            "DiT); a non-causal call with a window, GQA, q_offset or Sq != "
+            "Sk is not ported")
     return flash_attention(q, k, v)

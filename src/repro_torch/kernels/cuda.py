@@ -4,8 +4,8 @@ Each `src/repro_torch/csrc/<name>.cu` is compiled by nvcc into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ctypes and called with raw device pointers and
 PyTorch's current stream.  Libraries are built at first use into
-`<checkout>/build/repro_torch/`, named by a hash of their source so an
-edited source is rebuilt; `build_all()` compiles every source in parallel,
+`<checkout>/build/repro_torch/`, named by a hash of their source and the
+shared headers (`csrc/*.cuh`) so an edited source is rebuilt; `build_all()` compiles every source in parallel,
 one nvcc process each.
 
 Every C entry point returns `cudaGetLastError()` right after its launch;
@@ -63,7 +63,9 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every library's key
+    src = b"".join(f.read_bytes() for f in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -1,15 +1,24 @@
-"""Serving CLI, the diffusion half: gDDIM sampling as a service on one card.
+"""Serving CLI over the `repro_torch.serve` engines, on one card.
 
-    python -m repro_torch.launch.serve --diffusion cifar10-cld --reduced \\
-        --batch 4 --requests 8 --nfe 10 \\
-        --mix nfe=10,q=2 nfe=10,q=2,corrector nfe=10,lam=0.5 \\
+Token decoding (greedy, continuous batching, batched prefill):
+
+    python -m repro_torch.launch.serve --arch gemma3-1b --reduced \
+        --batch 3 --requests 6 --prompt-len 8 --max-new 6 --max-len 32
+
+gDDIM sampling as a service:
+
+    python -m repro_torch.launch.serve --diffusion cifar10-cld --reduced \
+        --batch 4 --requests 8 --nfe 10 \
+        --mix nfe=10,q=2 nfe=10,q=2,corrector nfe=10,lam=0.5 \
               nfe=10,lam=0.5,algorithm=gmm
 
-Requests cycle through the --mix specs (ServeRequest sampler fields as
-key=value; keys not named fall back to --nfe/--q/--corrector/--lam/
---grid/--algorithm).  Weights are random, drawn from --seed.  The engine
-runs on --device (default cuda: the hand-written kernels); --device cpu
-runs the plain versions.
+Token prompts are random ids from --seed (`numpy` default_rng, ids in
+[2, vocab)), as the JAX package's CLI draws them.  Diffusion requests cycle
+through the --mix specs (ServeRequest sampler fields as key=value; keys not
+named fall back to --nfe/--q/--corrector/--lam/--grid/--algorithm).
+Weights are random, drawn from --seed.  The engine runs on --device
+(default cuda: the hand-written kernels); --device cpu runs the plain
+versions.
 """
 from __future__ import annotations
 
@@ -17,11 +26,13 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
-from ..configs import DIFFUSION_MODULES, get_diffusion
+from ..configs import ARCH_IDS, DIFFUSION_MODULES, get_arch, get_diffusion
 from ..core import SamplerConfig
-from ..serve import DiffusionEngine, ServeRequest
+from ..models.registry import Arch
+from ..serve import DiffusionEngine, ServeRequest, TokenEngine
 
 
 def parse_sampler_spec(spec: str) -> dict:
@@ -58,6 +69,33 @@ def parse_sampler_spec(spec: str) -> dict:
     return out
 
 
+def serve_tokens(args) -> int:
+    device = torch.device(args.device)
+    arch = Arch(get_arch(args.arch, reduced=args.reduced))
+    params = arch.init(seed=args.seed, device=device)
+    rng = np.random.default_rng(args.seed)
+    requests = [ServeRequest(
+        rid=rid, workload="token",
+        tokens=rng.integers(2, arch.cfg.vocab,
+                            size=args.prompt_len).astype(np.int32),
+        max_new=args.max_new) for rid in range(args.requests)]
+    engine = TokenEngine(arch, params, batch_size=args.batch,
+                         max_len=args.max_len, device=device)
+    t0 = time.perf_counter()
+    results = engine.serve(requests)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"served {len(results)} requests in {dt:.3f}s on {device} "
+          f"({engine.n_decode_steps} decode rounds, {engine.n_prefill_calls} "
+          f"prefill calls, {engine.n_polls} polls, batch {args.batch}, "
+          f"{engine.n_tokens_out / max(dt, 1e-9):.1f} tok/s, wall clock "
+          f"incl. first-call set-up)")
+    for rid in sorted(results)[:4]:
+        print(f"  req{rid}: {results[rid][:12].tolist()}...")
+    return 0
+
+
 def serve_samples(args) -> int:
     spec = get_diffusion(args.diffusion, reduced=args.reduced)
     device = torch.device(args.device)
@@ -87,13 +125,20 @@ def serve_samples(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="gDDIM sampling service on PyTorch/CUDA; request flags "
-                    "mirror repro_torch.serve.ServeRequest")
-    ap.add_argument("--diffusion", required=True,
-                    choices=list(DIFFUSION_MODULES))
+        description="Serving CLI over the repro_torch.serve engines (token "
+                    "decoding or gDDIM sampling) on PyTorch/CUDA; request "
+                    "flags mirror repro_torch.serve.ServeRequest")
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--diffusion", choices=list(DIFFUSION_MODULES))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=64,
+                    help="token workload: cache length per slot")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="token workload: synthetic prompt length")
+    ap.add_argument("--max-new", type=int, default=24,
+                    help="token workload: ServeRequest.max_new")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nfe", type=int, default=20)
     ap.add_argument("--q", type=int, default=1)
@@ -110,6 +155,12 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
+    if (args.arch is None) == (args.diffusion is None):
+        ap.error("pass exactly one of --arch / --diffusion")
+    if args.arch is not None:
+        if args.mix:
+            ap.error("--mix only applies to --diffusion serving")
+        return serve_tokens(args)
     try:
         args.default_config = SamplerConfig(
             nfe=args.nfe, q=args.q, corrector=args.corrector, lam=args.lam,

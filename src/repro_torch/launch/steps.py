@@ -1,5 +1,10 @@
-"""Step factories: the programs the serving engine runs each round.
+"""Step factories: the programs the serving engines run.
 
+  make_prefill_step(arch, max_len)       batched prompt prefill -> (last
+                                         position's logits, fresh caches)
+  make_token_round_step(arch)            one greedy decode token for every
+                                         slot of a TokenState, with the
+                                         per-slot bookkeeping on the device
   make_diffusion_round_step(spec, fam)   bank-mode gDDIM round over a
                                          DiffusionState: score eval, the
                                          Eq. 45 predictor + corrector eval
@@ -11,6 +16,49 @@
 from __future__ import annotations
 
 import torch
+
+
+def make_prefill_step(arch, max_len: int):
+    def prefill_step(params, batch):
+        return arch.prefill(params, batch, max_len)
+
+    return prefill_step
+
+
+def make_token_round_step(arch):
+    """One serving round over a device-resident `TokenState`: decode every
+    slot at its own position `state.pos`, then the per-slot bookkeeping —
+    append the token to the slot's output row, advance `pos`/`n_out`, and
+    retire (clear `active`) on eos or when the budget is spent.  Retired
+    rows are frozen: every update is masked by `state.active`, so a
+    finished slot's outputs survive until the host fetches them.  Decode
+    still runs on frozen rows and writes their K/V at their own, in-range
+    `pos` (row-local garbage that admission overwrites), as in the JAX
+    package.  The JAX step writes an inactive row's token at an
+    out-of-range column and drops it; an out-of-range index is a device
+    assert in torch, so here an inactive row writes its own current value
+    back at column 0 instead.  Nothing is read back to the host; the caches
+    are updated in place."""
+    from ..serve.state import TokenState
+
+    @torch.no_grad()
+    def round_step(params, state, caches, eos: int):
+        logits, caches = arch.decode(params, state.last, caches, state.pos)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)          # (B,)
+        act = state.active
+        rows = torch.arange(state.out.shape[0], device=act.device)
+        col = torch.where(act, state.n_out, 0).long()
+        out = state.out
+        out[rows, col] = torch.where(act, nxt, out[rows, col])
+        n_out = torch.where(act, state.n_out + 1, state.n_out)
+        done_now = act & ((nxt == eos) | (n_out >= state.budget))
+        return TokenState(
+            last=torch.where(act[:, None], nxt[:, None], state.last),
+            pos=torch.where(act, state.pos + 1, state.pos),
+            n_out=n_out, budget=state.budget, out=out,
+            active=act & ~done_now), caches
+
+    return round_step
 
 
 def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0):

@@ -1,0 +1,61 @@
+"""Architecture interface over the model families the launcher and the
+token engine consume — the transformer family for now:
+
+    init(seed, device)               -> params (random, from a seed)
+    init_cache(batch, max_len)       -> per-layer zeroed (k, v) caches
+    prefill(params, batch, max_len)  -> (logits_last, caches)
+    decode(params, token, caches, cache_len) -> (logits, caches)
+
+The other families of the JAX package (rwkv, zamba, encdec) are not
+ported: an `Arch` over one of them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from . import transformer
+
+FAMILIES = ("transformer",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str                   # transformer (rwkv | zamba | encdec: not ported)
+    cfg: Any
+
+
+class Arch:
+    def __init__(self, spec: ArchSpec):
+        if spec.family not in FAMILIES:
+            raise NotImplementedError(
+                f"{spec.name}: the {spec.family!r} family is not ported "
+                f"(ported: {FAMILIES})")
+        self.spec = spec
+        self.cfg = spec.cfg
+
+    def init(self, seed: int = 0, device="cuda") -> Any:
+        """Random weights drawn on `device` from a generator seeded with
+        `seed` (so a full-width init never stages through the host)."""
+        device = torch.device(device)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        return transformer.init_params(self.cfg, gen, device)
+
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      device=device)
+
+    def prefill(self, params: Any, batch: Dict[str, torch.Tensor],
+                max_len: int) -> Tuple[torch.Tensor, Any]:
+        return transformer.prefill(params, self.cfg, batch["tokens"],
+                                   max_len)
+
+    def decode(self, params: Any, token: torch.Tensor, caches: Any,
+               cache_len) -> Tuple[torch.Tensor, Any]:
+        """One-token serve step.  token: (B, 1); the caches are updated in
+        place and returned."""
+        return transformer.decode_step(params, self.cfg, token, caches,
+                                       cache_len)

@@ -135,8 +135,9 @@ class DiT(nn.Module):
             mod = te_act @ lp.ada_w + lp.ada_b
             sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
             z = _modulate(common.layer_norm(h, ones, zeros), sh1, sc1)
-            a = common.attn_apply(lp.attn, z, n_heads=cfg.n_heads,
-                                  d_head=cfg.d_head)
+            a, _ = common.attn_apply(lp.attn, z, n_heads=cfg.n_heads,
+                                     n_kv=cfg.n_heads, d_head=cfg.d_head,
+                                     causal=False)
             h = h + g1[:, None] * a
             z = _modulate(common.layer_norm(h, ones, zeros), sh2, sc2)
             h = h + g2[:, None] * common.mlp_apply(lp.mlp, z, act="gelu")

@@ -1,0 +1,183 @@
+"""Decoder-only transformer LM family, the dense form (gemma3-1b's):
+
+  * GQA attention with RoPE (any n_kv_heads, incl. MQA n_kv = 1)
+  * a per-pattern-position sliding window (gemma3's 5 local : 1 global)
+  * gated (SwiGLU) or plain FFN, RMSNorm with the (1 + gamma) scale
+
+The JAX package scans over pattern groups with params stacked
+(n_groups, ...) per pattern position, then runs unrolled remainder layers.
+Here depth is a plain loop over `params["layers"]` in the order JAX runs
+them — layer l = g * P + pos of the groups, then the remainder layers —
+and layer l uses the window of pattern position l % P (for the remainder
+layers too).  `convert.from_jax_transformer` lays a JAX tree out in that
+order.  Caches are per layer: a list of (k, v), each (B, max_len, Hkv, Dh).
+
+MoE fields stay in the config for parity with the JAX package's, but an
+MoE layer is not ported: `init_params` refuses a config that has one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from . import common
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+Cache = List[Tuple[Tensor, Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerCfg:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    act: str = "silu"
+    gated_mlp: bool = True
+    rope_theta: float = 10000.0
+    # pattern description (length P): per-position sliding window (None =
+    # global) and whether the FFN is MoE (not ported)
+    layer_windows: Tuple[Optional[int], ...] = (None,)
+    layer_moe: Tuple[bool, ...] = (False,)
+    moe: Optional[Any] = None
+    tie_embeddings: bool = True
+    dtype: Any = torch.float32
+
+    @property
+    def pattern(self) -> int:
+        return len(self.layer_windows)
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // self.pattern
+
+    @property
+    def n_rem(self) -> int:
+        return self.n_layers - self.n_groups * self.pattern
+
+    def window(self, layer: int) -> Optional[int]:
+        """Sliding window of layer `layer` in execution order."""
+        return self.layer_windows[layer % self.pattern]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _layer_params(gen, cfg: TransformerCfg, device) -> Params:
+    d, dt = cfg.d_model, cfg.dtype
+    init = lambda a, b: common.dense_init(gen, a, b, dt, None, device)
+    mlp = {"w_up": init(d, cfg.d_ff), "w_down": init(cfg.d_ff, d)}
+    if cfg.gated_mlp:
+        mlp["w_gate"] = init(d, cfg.d_ff)
+    return {
+        "ln_attn": torch.zeros(d, dtype=dt, device=device),
+        "ln_mlp": torch.zeros(d, dtype=dt, device=device),
+        "attn": common.attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.d_head, dt, device),
+        "mlp": mlp}
+
+
+def init_params(cfg: TransformerCfg, gen: torch.Generator,
+                device="cpu") -> Params:
+    """Random weights at the JAX init's scales, drawn from `gen` (on the
+    generator's device) and placed on `device`."""
+    if any(cfg.layer_moe) and cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported")
+    params: Params = {
+        "embed": common.embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype,
+                                   device),
+        "ln_f": torch.zeros(cfg.d_model, dtype=cfg.dtype, device=device),
+        "layers": [_layer_params(gen, cfg, device)
+                   for _ in range(cfg.n_layers)]}
+    if not cfg.tie_embeddings:
+        params["unembed"] = common.dense_init(gen, cfg.d_model, cfg.vocab,
+                                              cfg.dtype, None, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def _block(p: Params, cfg: TransformerCfg, layer: int, x: Tensor,
+           rope, kv_cache=None, cache_len=None):
+    h = common.rms_norm(x, p["ln_attn"])
+    attn_out, new_cache = common.attn_apply(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        d_head=cfg.d_head, causal=True, window=cfg.window(layer),
+        rope=rope,
+        kv_cache=kv_cache, cache_len=cache_len)
+    x = x + attn_out
+    h = common.rms_norm(x, p["ln_mlp"])
+    return x + common.mlp_apply(p["mlp"], h, act=cfg.act), new_cache
+
+
+def _trunk(params: Params, cfg: TransformerCfg, tokens: Tensor,
+           caches: Optional[Cache], cache_len) -> Tuple[Tensor, Optional[Cache]]:
+    """Every layer and the final norm: (B, S) ids -> (B, S, D) hidden."""
+    x = params["embed"][tokens.long()]
+    positions = common.decode_positions(x.shape[1], cache_len, x.device)
+    rope = (common.rope_table(positions, cfg.d_head, cfg.rope_theta)
+            if cfg.rope_theta > 0 else None)
+    new_caches = None if caches is None else []
+    for layer, p in enumerate(params["layers"]):
+        cache = None if caches is None else caches[layer]
+        x, nc = _block(p, cfg, layer, x, rope, kv_cache=cache,
+                       cache_len=cache_len)
+        if caches is not None:
+            new_caches.append(nc)
+    return common.rms_norm(x, params["ln_f"]), new_caches
+
+
+def _logits(params: Params, cfg: TransformerCfg, x: Tensor) -> Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["unembed"]
+
+
+@torch.no_grad()
+def forward(params: Params, cfg: TransformerCfg, tokens: Tensor, *,
+            caches: Optional[Cache] = None,
+            cache_len=None) -> Tuple[Tensor, Optional[Cache]]:
+    """tokens: (B, S) int ids.  Returns (logits (B, S, vocab), caches).
+    With `caches`, runs in cached mode: a scalar `cache_len` writes the S
+    new K/V rows at that position (prefill: 0); a (B,) tensor is the
+    per-slot one-token decode."""
+    x, new_caches = _trunk(params, cfg, tokens, caches, cache_len)
+    return _logits(params, cfg, x), new_caches
+
+
+def init_cache(cfg: TransformerCfg, batch: int, max_len: int, dtype=None,
+               device="cpu") -> Cache:
+    """Per-layer zeroed (k, v), each (batch, max_len, Hkv, Dh)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    dtype = dtype or cfg.dtype
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: TransformerCfg, tokens: Tensor,
+            max_len: int) -> Tuple[Tensor, Cache]:
+    """(logits of the last position (B, vocab), fresh caches holding the
+    prompt's K/V).  Only the last position is projected to the vocabulary,
+    which is all the caller reads."""
+    caches = init_cache(cfg, tokens.shape[0], max_len,
+                        device=params["embed"].device)
+    x, caches = _trunk(params, cfg, tokens, caches, 0)
+    return _logits(params, cfg, x[:, -1]), caches
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: TransformerCfg, token: Tensor,
+                caches: Cache, cache_len) -> Tuple[Tensor, Cache]:
+    """token: (B, 1); cache_len: scalar or (B,) — the valid entries."""
+    x, caches = _trunk(params, cfg, token, caches, cache_len)
+    return _logits(params, cfg, x[:, -1]), caches

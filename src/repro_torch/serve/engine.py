@@ -1,4 +1,17 @@
-"""Continuous-batching gDDIM sampling on one device.
+"""Continuous-batching engines on one device: token decoding and gDDIM
+sampling.
+
+`TokenEngine` decodes one greedy token for every active slot per round.
+Admission runs a batched prefill of each wave (its prompts share one
+length), width-bucketed to the wave's power-of-two size, and scatters the
+wave's cache rows into the slots' caches; the round step decodes every
+slot at its own position (`TokenState.pos`), appends to the slot's output
+row and retires on eos or budget, all on the device.  The host polls the
+small done/progress mask at most every `SYNC_EVERY` rounds — exactly at
+the next possible retirement when no eos intervenes — and fetches the
+output row of each finished slot.  On the card each layer's prefill
+attention is the causal flash kernel and each decode round's attention
+the split-K `decode_attention` kernel.
 
 `DiffusionEngine` runs one gDDIM update for every active slot per round,
 each slot at its own step index k and with its own sampler config (NFE,
@@ -24,13 +37,16 @@ draws the prior from PRNGKey(seed) and keys the step noise by
 fold_in(PRNGKey(seed), _NOISE_SALT), exactly as the JAX engine does, and
 every per-row computation is row-independent.
 
-An engine serves one SDE family (CLD or BDM), the "f32" precision class (the score
-net runs in its config's dtype — bf16 at full width — and returns f32
-eps), closed request lists (`serve`), on one device.
+A diffusion engine serves one SDE family (CLD or BDM), the "f32" precision
+class (the score net runs in its config's dtype — bf16 at full width — and
+returns f32 eps); a token engine the transformer family.  Both serve
+closed request lists (`serve`) on one device; mesh mode, encoder-decoder
+memory and streaming with preemption are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -42,11 +58,144 @@ from ..kernels.round_fused.ref import pad_channels
 from ..launch import steps as steps_lib
 from ..sde.base import family_name
 from .api import ServeRequest
-from .loop import ServeLoop
+from .loop import ServeLoop, bucket_pow2
 from .scheduler import Scheduler
-from .state import diffusion_state_init
+from .state import diffusion_state_init, token_state_init
 
 PRECISIONS = ("f32",)
+
+
+def _place(tree: Any, device: torch.device) -> Any:
+    """A nested dict/list of tensors, each moved to `device` (no copy for
+    one already there)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, device) for v in tree)
+    return tree.to(device)
+
+
+class TokenEngine(ServeLoop):
+    """Continuous-batching greedy decode over a transformer `Arch`.
+
+        engine = TokenEngine(arch, params, batch_size=4, max_len=1024)
+        results = engine.serve([ServeRequest(rid=0, workload="token",
+                                             tokens=prompt, max_new=32)])
+        # results[rid] -> np.ndarray of generated token ids (the prefill's
+        # token first), at most max_new of them
+
+    The engine is persistent: repeated `serve()` calls reuse the allocated
+    caches.  `device` defaults to "cuda"; the CPU tests pass device="cpu"
+    and then every kernel wrapper runs its plain version.
+    """
+
+    def __init__(self, arch: Any, params: Any, batch_size: int, max_len: int,
+                 eos_id: int = 1, device="cuda"):
+        super().__init__(batch_size,
+                         Scheduler(group_key=lambda r: r.prompt_len))
+        self.device = torch.device(device)
+        self.arch = arch
+        self.max_len = max_len
+        self.eos_id = int(eos_id)
+        self.params = _place(params, self.device)
+        self.caches = arch.init_cache(batch_size, max_len, device=self.device)
+        self.state = token_state_init(batch_size, max_len, device=self.device)
+        self._prefill = steps_lib.make_prefill_step(arch, max_len)
+        self._decode = steps_lib.make_token_round_step(arch)
+        # throughput counters
+        self.n_decode_steps = 0
+        self.n_prefill_calls = 0
+        self.n_tokens_out = 0
+        # recent admission-wave widths (bounded: the engine is persistent)
+        self.prefill_widths: deque = deque(maxlen=256)
+
+    # ---- ServeLoop hooks ----------------------------------------------------
+    def _validate(self, r: ServeRequest) -> None:
+        if r.workload != "token":
+            raise ValueError(f"request {r.rid}: workload {r.workload!r}, "
+                             "this engine decodes tokens")
+        if r.frames is not None:
+            raise ValueError(f"request {r.rid}: encoder frames are not "
+                             "served (no encdec arch is ported)")
+        if r.prompt_len < 1:
+            raise ValueError(f"request {r.rid}: empty prompt")
+        if r.max_new < 1:
+            raise ValueError(f"request {r.rid}: max_new must be >= 1 "
+                             f"(got {r.max_new})")
+        if r.prompt_len + r.max_new > self.max_len:
+            raise ValueError(
+                f"request {r.rid}: prompt_len {r.prompt_len} + max_new "
+                f"{r.max_new} exceeds max_len {self.max_len}")
+
+    @torch.no_grad()
+    def _admit_wave(self, group: List[ServeRequest], free: List[int]) -> None:
+        # prefill width-bucketed to the wave's power-of-two size: a small
+        # wave does not pay full-batch prefill FLOPs; padded rows (zero
+        # prompts) are computed and dropped at the scatter
+        L, n = group[0].prompt_len, len(group)
+        G = bucket_pow2(n, self.batch_size)
+        toks = np.zeros((G, L), np.int32)
+        for g, req in enumerate(group):
+            toks[g] = req.tokens
+        logits_last, caches_g = self._prefill(
+            self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
+        self.n_prefill_calls += 1
+        self.prefill_widths.append(G)
+
+        # row scatter: row g of the wave -> slot free[g]
+        meta = torch.tensor([free[:n], [r.max_new for r in group]],
+                            dtype=torch.int32).to(self.device)
+        ids, budgets = meta[0].long(), meta[1]
+        for (dk, dv), (sk, sv) in zip(self.caches, caches_g):
+            dk[ids] = sk[:n].to(dk.dtype)
+            dv[ids] = sv[:n].to(dv.dtype)
+        # a slot born done (budget 1, or the prefill token is already eos)
+        # starts inactive; the first poll retires it without a round
+        first = torch.argmax(logits_last[:n], dim=-1).to(torch.int32)
+        st = self.state
+        st.last[ids, 0] = first
+        st.pos[ids] = L
+        st.n_out[ids] = 1
+        st.budget[ids] = budgets
+        st.out[ids, 0] = first
+        st.active[ids] = (budgets > 1) & (first != self.eos_id)
+        for g, req in enumerate(group):
+            # host shadow: n_out paces polls (it may overshoot the device
+            # count after an early eos — resynced at every poll, and an
+            # overshoot only makes the next poll earlier, never later)
+            self.slots.assign(free[g], req, n_out=1, budget=req.max_new)
+
+    def _round(self) -> None:
+        self.state, self.caches = self._decode(self.params, self.state,
+                                               self.caches, self.eos_id)
+        self.n_decode_steps += 1
+        for s in self.slots.active():
+            s.data["n_out"] += 1
+
+    @torch.no_grad()
+    def _poll(self, results: Dict[int, np.ndarray]) -> int:
+        busy = self.slots.active()
+        if not busy:
+            return 0
+        # the one steady-state device fetch: the done/progress mask
+        snap = torch.stack([self.state.active.to(torch.int32),
+                            self.state.n_out]).cpu().numpy()
+        active, n_out = snap[0].astype(bool), snap[1]
+        finished = [s for s in busy if not active[s.index]]
+        if finished:
+            # retired rows are frozen, so the live out buffer is exact
+            out = self.state.out.cpu().numpy()
+            for s in finished:
+                n = int(n_out[s.index])
+                results[s.request.rid] = out[s.index, :n].astype(np.int32)
+                self.n_tokens_out += n
+                self.slots.release(s.index)
+        for s in self.slots.active():
+            s.data["n_out"] = int(n_out[s.index])
+        return len(finished)
+
+    def _remaining_lb(self, slot) -> int:
+        return slot.data["budget"] - slot.data["n_out"]
 
 
 class DiffusionEngine(ServeLoop):
@@ -67,6 +216,8 @@ class DiffusionEngine(ServeLoop):
     """
 
     _NOISE_SALT = 0x5EED              # separates step noise from the prior
+    greedy_admit = False              # one cost-class wave per admission
+                                      # cycle (see ServeLoop.greedy_admit)
 
     def __init__(self, spec: Any, params: torch.nn.Module, batch_size: int,
                  nfe: Optional[int] = None,

@@ -1,4 +1,4 @@
-"""`ServeLoop`: the continuous-batching core behind the diffusion engine.
+"""`ServeLoop`: the continuous-batching core behind both engines.
 
 The per-slot state the round step consumes lives on the device (state.py)
 and the host keeps only a cheap shadow of it in the `SlotTable` — enough
@@ -7,15 +7,17 @@ closed list of requests:
 
     while pending or busy:
         _admit()                  # fill free slots (the only host->device
-                                  #   traffic: prior draws at admission)
+                                  #   traffic: prompts / prior draws)
         n = _rounds_until_poll()  # host-side lower bound on rounds until
                                   #   the next retirement, capped at
                                   #   SYNC_EVERY
         n x _round()              # device-resident steps, queued on the
                                   #   stream without a sync
-        _poll(results)            # host arithmetic (a sampler's retirement
-                                  #   round is exactly predictable) plus
-                                  #   the fetch of each finished sample
+        _poll(results)            # one small fetch of the token done/
+                                  #   progress mask, or host arithmetic
+                                  #   (a sampler's retirement round is
+                                  #   exactly predictable), plus the fetch
+                                  #   of each finished result
 
 Streaming arrivals, deadline scheduling and preemption belong to a later
 slice of the port.
@@ -26,9 +28,16 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from ..core.coeffs import bucket_size
 from .slots import SlotTable
 
 SYNC_EVERY = 8      # most rounds queued between two polls (the JAX default)
+
+
+def bucket_pow2(n: int, cap: int) -> int:
+    """Smallest power of two >= n, capped at `cap` (prefill width buckets;
+    the same doubling policy as the coefficient-bank buckets)."""
+    return min(bucket_size(n, 1), cap)
 
 
 def check_unique_rids(requests) -> None:
@@ -52,6 +61,14 @@ class ServeLoop:
       _remaining_lb(slot)       host-side lower bound on rounds until this
                                 slot can retire (0 = may already be done)
     """
+
+    #: greedy engines fill every free slot per admission cycle (token: waves
+    #: are prompt-length buckets, nothing is gained by spacing them out);
+    #: non-greedy engines admit ONE head-of-line wave per cycle, so a queued
+    #: wave of a more expensive cost class does not land next to the cheap
+    #: wave just admitted (diffusion: a corrector wave would drag
+    #: predictor-only neighbours through the 2-eval program)
+    greedy_admit = True
 
     def __init__(self, batch_size: int, scheduler):
         self.batch_size = batch_size
@@ -84,16 +101,19 @@ class ServeLoop:
         return results
 
     def _admit(self) -> None:
-        """Admit ONE class-homogeneous head-of-line wave into free slots, so
-        a queued wave of a more expensive cost class does not land next to
-        the cheap wave just admitted."""
-        free = self.slots.free_ids()
-        group = self.scheduler.take_group(len(free))
-        if not group:
-            return
-        self.wave_log.append(
-            tuple(self.scheduler._group_key(r) for r in group))
-        self._admit_wave(group, list(free[:len(group)]))
+        """Fill free slots from the queue in class-homogeneous waves (one
+        `take_group` run each): every wave for greedy engines, a single
+        head-of-line wave per cycle otherwise (see `greedy_admit`)."""
+        while True:
+            free = self.slots.free_ids()
+            group = self.scheduler.take_group(len(free))
+            if not group:
+                return
+            self.wave_log.append(
+                tuple(self.scheduler._group_key(r) for r in group))
+            self._admit_wave(group, list(free[:len(group)]))
+            if not self.greedy_admit:
+                return
 
     def _rounds_until_poll(self) -> int:
         lb = min(self._remaining_lb(s) for s in self.slots.active())

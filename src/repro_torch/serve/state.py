@@ -1,12 +1,14 @@
-"""`DiffusionState`: the device-resident half of the diffusion engine.
+"""The device-resident half of the serving engines: `TokenState` for the
+token engine, `DiffusionState` for the diffusion engine.
 
 Everything the round step consumes or updates per slot lives here, as one
 batch-leading tuple of tensors on the engine's device.  The host keeps only
 a shadow (serve/slots.py) that paces the loop; the round step reads and
-writes the state on the device and nothing comes back to the host until a
-sample finishes.  Retired slots are frozen, not cleared: the round step
-masks every update with `active`, so a finished sample survives verbatim
-until the host fetches it.
+writes the state on the device, and what comes back to the host is each
+finished result and, for the token engine, the small done/progress mask
+it polls.  Retired slots are frozen, not cleared: the round step masks
+every update with `active`, so a finished result survives verbatim until
+the host fetches it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,38 @@ from typing import NamedTuple
 import torch
 
 Tensor = torch.Tensor
+
+
+class TokenState(NamedTuple):
+    """Per-slot decode state for `TokenEngine` (all leaves batch-leading):
+
+      last    (B, 1) int32   last emitted token (next step's input)
+      pos     (B,)   int32   absolute cache position of the slot
+      n_out   (B,)   int32   tokens emitted so far (incl. the prefill token)
+      budget  (B,)   int32   the request's max_new
+      out     (B, max_len) int32  per-slot output row; row b holds
+                                  out[b, :n_out[b]]
+      active  (B,)   bool    False once retired (eos / budget) — every
+                             update in the round step is masked by this
+    """
+    last: Tensor
+    pos: Tensor
+    n_out: Tensor
+    budget: Tensor
+    out: Tensor
+    active: Tensor
+
+
+def token_state_init(batch_size: int, max_len: int,
+                     device="cuda") -> TokenState:
+    """All-free token state (every slot inactive, zeroed) on `device`."""
+    B = batch_size
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
+    return TokenState(
+        last=i32(B, 1), pos=i32(B), n_out=i32(B),
+        budget=torch.ones((B,), dtype=torch.int32, device=device),
+        out=i32(B, max_len),
+        active=torch.zeros((B,), dtype=torch.bool, device=device))
 
 
 class DiffusionState(NamedTuple):

@@ -1,5 +1,6 @@
-"""Parity of the port's attention with the JAX package's, non-causal (the
-DiT form the CUDA kernel covers).
+"""Parity of the port's attention with the JAX package's, in the two forms
+the CUDA kernel covers: non-causal (the DiT) and causal with a window, GQA,
+q_offset and Sq != Sk (LM prefill).
 
 The port's plain version is held against JAX's `attention_ref` and the
 Pallas `flash_attention(..., interpret=True)` on the CPU.  Tier: f32,
@@ -73,6 +74,33 @@ def test_plain_attention_masks_match_jax():
         np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("q_offset", [0, 9])
+def test_plain_causal_attention_matches_jax_pallas_interpret(q_offset, window,
+                                                             rep):
+    """The LM prefill form: 12 queries at absolute positions q_offset ..
+    q_offset + 11 over a 32-key cache (Sq != Sk, the tail beyond the last
+    query hidden by the causal mask alone), Hq 4 over Hkv 4 / rep or the
+    MQA Hkv 1, window none or 6 (keys in (q_pos - 6, q_pos]).  Pallas
+    blocks of 4 x 8, so whole key blocks are skipped; every row keeps at
+    least its own key."""
+    rng = np.random.default_rng(q_offset + rep + (window or 0))
+    q = rng.standard_normal((2, 12, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 32, 4 // rep, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 32, 4 // rep, 16)).astype(np.float32)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                        window=window, q_offset=q_offset)
+    want = np.asarray(jflash(*map(jnp.asarray, (q, k, v)),
+                             q_offset=q_offset, causal=True, window=window,
+                             block_q=4, block_k=8, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+    # a device-scalar q_offset gives the same numbers as the int
+    got_t = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                          window=window, q_offset=torch.tensor(q_offset))
+    torch.testing.assert_close(got_t, got, rtol=0, atol=0)
+
+
 def test_kernel_refuses_what_it_does_not_cover():
     """Dispatch never guesses: a tensor that is neither on the CPU nor on a
     card is refused, and the kernel wrapper refuses a CPU tensor rather
@@ -83,3 +111,5 @@ def test_kernel_refuses_what_it_does_not_cover():
     x = torch.zeros(1, 8, 2, 32)
     with pytest.raises(ValueError):
         ops.flash_attention(x, x, x)             # a CPU tensor is no kernel input
+    with pytest.raises(ValueError):
+        ops.flash_attention_causal(x, x, x)      # either form

@@ -16,7 +16,11 @@ Tiers (kernel vs plain version on the same card):
     kernel's own draw, the dct2 kernel, the commit) within rtol = atol =
     1e-5 of the plain draw and plain DCT;
   * flash_attention: f32 within 2e-5, bf16 within one bf16 ulp of the
-    output (8e-3 relative at |o| of order 1);
+    output (8e-3 relative at |o| of order 1); the causal/window/GQA form
+    (LM prefill) f32 within 2e-5, bf16 within 2 bf16 ulp;
+  * decode_attention (split pass + merge): f32 within 1e-5, bf16 within
+    2 bf16 ulp (both round the same f32 softmax once, summed in another
+    order);
   * dct2 / bdm_ei_update: within 1e-6 of max |x| (max |out| for the
     update) of the plain version, whose products cuBLAS sums in another
     order (f32 throughout: TF32 is off).
@@ -30,6 +34,8 @@ from repro_torch.kernels import cuda as kc
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.dct2 import ops as dct_ops
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.dct2 import ref as dct_ref
 from repro_torch.kernels.round_fused import ops as rf
 from repro_torch.kernels.round_fused import ref as rf_ref
@@ -165,13 +171,146 @@ def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(attn_ops, "attention_ref", boom)
+    monkeypatch.setattr(dec_ops, "decode_attention_ref", boom)
     q = torch.randn(1, 8, 2, 32, device=dev)
+    kc.reset_launches()
     attn_ops.attention(q, q, q, causal=False)
+    attn_ops.attention(q, q, q, causal=True, window=3)  # the LM form
+    assert kc.launches()["flash_attention"] == 2
+    with pytest.raises(NotImplementedError):            # not ported: raises
+        attn_ops.attention(q, q, q, causal=False, window=3)
     with pytest.raises(NotImplementedError):
-        attn_ops.attention(q, q, q, causal=True)       # not ported: raises
+        attn_ops.attention(q, q[:, :, :1].contiguous(), q[:, :, :1]
+                           .contiguous(), causal=False)  # GQA, non-causal
     with pytest.raises(ValueError):
         attn_ops.flash_attention(*(torch.randn(1, 8, 2, 48, device=dev),) * 3)
+    with pytest.raises(ValueError):
+        attn_ops.attention(*(torch.randn(1, 8, 2, 48, device=dev),) * 3,
+                           causal=True)
+    k = torch.randn(1, 40, 2, 16, device=dev)
+    dec_ops.decode_attention(torch.randn(1, 4, 16, device=dev), k, k, 7)
+    with pytest.raises(ValueError):                     # head width 48
+        kk = torch.randn(1, 40, 1, 48, device=dev)
+        dec_ops.decode_attention(torch.randn(1, 4, 48, device=dev), kk, kk, 7)
+    with pytest.raises(ValueError):                     # rep 32 > 16
+        kk = torch.randn(1, 40, 1, 16, device=dev)
+        dec_ops.decode_attention(torch.randn(1, 32, 16, device=dev), kk, kk, 7)
+    with pytest.raises(TypeError):                      # cache dtype differs
+        dec_ops.decode_attention(torch.randn(1, 4, 16, device=dev),
+                                 k.bfloat16(), k.bfloat16(), 7)
     torch.cuda.synchronize()
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 ulps of want, the ulp taken at
+    max(|want|, max|want| / 1024)."""
+    w = want.float()
+    mag = w.abs().clamp_min(float(w.abs().max()) / 1024)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def _close(got, want, dtype, f32_tol):
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=f32_tol)
+    else:
+        assert _bf16_ulps(got, want) <= 2
+
+
+# (B, Hq, Hkv, Dh, S, cache_len per row, window): gemma3-1b's decode shape
+# (valid lengths at 1, a chunk edge, past the window, near the end), and a
+# small GQA shape with a ragged cache (S not a multiple of the 32-key chunk)
+DECODE_CASES = [(4, 4, 1, 256, 1024, [1, 96, 690, 1000], 512),
+                (4, 4, 1, 256, 1024, [1, 96, 690, 1000], None),
+                (3, 4, 2, 16, 40, [1, 33, 40], 5),
+                (3, 4, 2, 16, 40, [0, 7, 39], None)]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain_version(dev, case, dtype):
+    B, Hq, Hkv, Dh, S, lens, window = case
+    g = torch.Generator().manual_seed(Dh + S)
+    q = torch.randn(B, Hq, Dh, generator=g).to(dev, dtype)
+    k = torch.randn(B, S, Hkv, Dh, generator=g).to(dev, dtype)
+    v = torch.randn(B, S, Hkv, Dh, generator=g).to(dev, dtype)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kc.reset_launches()
+    got = dec_ops.decode_attention(q, k, v, cl, window=window)
+    want = decode_attention_ref(q, k, v, cl, window=window)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    assert n["decode_attention"] == n["decode_attention_merge"] == 1
+    _close(got, want, dtype, 1e-5)
+    # the scalar form is the per-row form with every row alike
+    got_s = dec_ops.decode_attention(q, k, v, lens[-1], window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got_s, dec_ops.decode_attention(
+            q, k, v, torch.full((B,), lens[-1], device=dev), window=window),
+        rtol=0, atol=0)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                      device=t.device)
+    off = (-buf.data_ptr()) % 16 + 4
+    out = buf[off:off + t.numel() * t.element_size()].view(t.dtype)
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_inputs_take_the_elementwise_loads(dev, dtype):
+    """Both kernels stage rows with 16-byte loads when the rows are 16-byte
+    aligned and element by element otherwise: the same numbers."""
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 4, 64, generator=g).to(dev, dtype)
+    k = torch.randn(2, 80, 1, 64, generator=g).to(dev, dtype)
+    cl = torch.tensor([33, 80], dtype=torch.int32, device=dev)
+    want = dec_ops.decode_attention(q, k, k, cl, window=40)
+    got = dec_ops.decode_attention(_misaligned(q), _misaligned(k),
+                                   _misaligned(k), cl, window=40)
+    qq = torch.randn(1, 40, 4, 64, generator=g).to(dev, dtype)
+    want2 = attn_ops.attention(qq, k[:1], k[:1], causal=True, window=9)
+    got2 = attn_ops.attention(_misaligned(qq), _misaligned(k[:1]),
+                              _misaligned(k[:1]), causal=True, window=9)
+    torch.cuda.synchronize()
+    assert _misaligned(q).data_ptr() % 16 == 4
+    assert torch.equal(got, want) and torch.equal(got2, want2)
+
+
+# (B, Sq, Hq, Sk, Hkv, Dh, window, q_offset): gemma3-1b's prefill of a
+# 640- and a 96-token prompt into the 1024-long cache (window layers and
+# global layers), a ragged Sq, and a small GQA case with a device q_offset
+CAUSAL_CASES = [(1, 640, 4, 1024, 1, 256, 512, 0),
+                (2, 96, 4, 1024, 1, 256, None, 0),
+                (2, 50, 4, 64, 1, 128, 20, 0),
+                (2, 12, 4, 32, 2, 16, 6, 9)]
+
+
+@pytest.mark.parametrize("case", CAUSAL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_flash_attention_matches_plain_version(dev, case, dtype):
+    B, Sq, Hq, Sk, Hkv, Dh, window, q_off = case
+    g = torch.Generator().manual_seed(Sq + Dh)
+    q = torch.randn(B, Sq, Hq, Dh, generator=g).to(dev, dtype)
+    k = torch.randn(B, Sk, Hkv, Dh, generator=g).to(dev, dtype)
+    v = torch.randn(B, Sk, Hkv, Dh, generator=g).to(dev, dtype)
+    off = torch.tensor(q_off, device=dev) if q_off else 0
+    kc.reset_launches()
+    got = attn_ops.attention(q, k, v, causal=True, window=window,
+                             q_offset=off)
+    want = attention_ref(q, k, v, causal=True, window=window, q_offset=q_off)
+    torch.cuda.synchronize()
+    assert kc.launches()["flash_attention"] == 1
+    _close(got, want, dtype, 2e-5)
 
 
 @pytest.mark.parametrize("cfgs,corr", [([0, 3, 2, 3], False),
@@ -258,6 +397,7 @@ def test_dct2_refuses_what_it_does_not_take(dev):
 
 
 def test_both_libraries_build(dev):
-    reports = kc.build_all(["round_fused", "attention", "dct2"])
-    assert set(reports) == {"round_fused", "attention", "dct2"}
+    names = ["round_fused", "attention", "dct2", "decode_attention"]
+    reports = kc.build_all(names)
+    assert set(reports) == set(names)
     assert all("error" not in r for r in reports.values())
