@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from src/repro_torch/csrc, then drives the
-three main paths through the port's engines, each at full width with
+four main paths through the port's engines, each at full width with
 random weights from a seed:
 
   * `cifar10-cld` (DiffusionEngine; DiT img 32 / patch 2 / d_model 768 /
@@ -12,6 +12,9 @@ random weights from a seed:
   * `cifar10-bdm` (the same DiT over a (B, 32, 32, 3) state held as DCT
     coefficients): dct2 around every eval, step_noise + dct2 + round_fused
     with streamed noise, round_predict (kf = 1), flash_attention;
+  * `cifar10-ddpm` (the same DiT over a VPSDE state (B, 32, 32, 3)):
+    round_fused with in-kernel noise and round_predict at kf = 1,
+    flash_attention;
   * `gemma3-1b` (TokenEngine; 26 layers, d_model 1152, 4 query heads over 1
     KV head of width 256, vocab 262144, bf16, window 512 on 5 layers of 6;
     batch 4, max_len 1024; 8 requests with prompts of 96 and 640 tokens,
@@ -23,12 +26,26 @@ Each path is served once with the launch counts set to 0 just before and
 read just after; every kernel of the path must have launched, and the
 results must be well formed (finite samples; max_new token ids in
 [0, vocab) per request).  Then each kernel is held against its plain
-PyTorch version at the path's shapes (bdm_ei_update, which no path runs,
-on its own), timed beside its plain version, a library call where one
-computes the same function, and its bound; the reduced configs on the card
-are checked against the plain versions on the CPU (samples; gemma3-1b's
-logits and token streams); and one serve of each path runs under a CUPTI
-trace.  It prints:
+PyTorch version at the path's shapes, timed beside its plain version, a
+library call where one computes the same function, and its bound; and one
+serve of each path runs under a CUPTI trace.  Two more paths follow:
+
+  * path A, the paper's lockstep sampler: `DiffusionSpec.sample` with
+    n = 64 at full width on `cifar10-ddpm` (VPSDE), `cifar10-cld` and
+    `cifar10-bdm`, runs nfe=10,q=2 / nfe=10,q=2,corrector / nfe=10,lam=0.5,
+    counts read around each: one ei_update (VPSDE, CLD) or bdm_ei_update
+    (BDM) launch per state update, flash_attention in every eval (and
+    held against its plain version at batch 64);
+  * path B, the pre-fusion round step: the CLD and BDM engines serve the
+    same list through `make_diffusion_round_step_stitched` (apply_factored
+    for every factor apply, step_noise for the noise), and must return the
+    fused engine's samples bit for bit.
+
+ei_update and apply_factored are held against their plain versions and
+timed; CLD on the exact score of a four-mode 2-D mixture checks sampling
+quality with no trained weights; and the reduced configs on the card are
+checked against the plain versions on the CPU (engine samples, path A
+samples; gemma3-1b's logits and token streams).  It prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -39,6 +56,7 @@ device, or outside a checkout, it fails.  Needs one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -63,12 +81,42 @@ PATH_KERNELS = {
     "cifar10-cld": ("round_fused", "round_predict", "flash_attention"),
     "cifar10-bdm": ("dct2", "step_noise", "round_fused", "round_predict",
                     "flash_attention"),
+    "cifar10-ddpm": ("round_fused", "round_predict", "flash_attention"),
 }
+# the name each path's records carry (the CLD path's are unsuffixed)
+PATH_TAG = {"cifar10-cld": "", "cifar10-bdm": "[bdm]",
+            "cifar10-ddpm": "[ddpm]"}
 LM_ARCH = "gemma3-1b"
 LM_LENS = (96, 640)             # prompt lengths, alternating by request
 LM_MAX_NEW, LM_MAX_LEN = 48, 1024
 LM_KERNELS = ("flash_attention", "decode_attention", "decode_attention_merge")
-LIBRARIES = ("round_fused", "attention", "dct2", "decode_attention")
+LIBRARIES = ("round_fused", "attention", "dct2", "decode_attention",
+             "ei_update")
+# path A: DiffusionSpec.sample at full width, n = A_N, after a warm-up run
+PATH_A = ("cifar10-ddpm", "cifar10-cld", "cifar10-bdm")
+A_N = 64
+A_RUNS = [dict(nfe=10, q=2), dict(nfe=10, q=2, corrector=True),
+          dict(nfe=10, lam=0.5)]
+A_KERNEL = {"cifar10-ddpm": "ei_update", "cifar10-cld": "ei_update",
+            "cifar10-bdm": "bdm_ei_update"}
+# path B: the pre-fusion round step serving MIX
+PATH_B_KERNELS = {
+    "cifar10-cld": ("apply_factored", "step_noise", "flash_attention"),
+    "cifar10-bdm": ("apply_factored", "step_noise", "dct2",
+                    "flash_attention"),
+}
+QUALITY_N = 4096
+# every TPU kernel (file:line of the function that reaches pl.pallas_call)
+TPU_KERNELS = (
+    "src/repro/kernels/round_fused/kernel.py:293",
+    "src/repro/kernels/round_fused/kernel.py:362",
+    "src/repro/kernels/attention/kernel.py:109",
+    "src/repro/kernels/dct2/kernel.py:98",
+    "src/repro/kernels/dct2/kernel.py:53",
+    "src/repro/kernels/decode_attention/kernel.py:93",
+    "src/repro/kernels/ei_update/kernel.py:56",
+    "src/repro/kernels/ei_update/kernel.py:96",
+)
 
 
 class Failed(Exception):
@@ -259,7 +307,7 @@ def drive_path(name: str, dev, mix, card: str):
     """One main path: a warm-up serve, the launch counts set to 0, one
     measured serve of the mix, the counts read right after.  Checks the
     counts, the results' shapes and finiteness; returns (spec, net,
-    engine, counts)."""
+    engine, counts, results)."""
     from repro_torch.kernels import cuda as kc
     t0 = time.perf_counter()
     spec, net, engine = make_engine(name, dev)
@@ -287,7 +335,7 @@ def drive_path(name: str, dev, mix, card: str):
         check(bool(np.isfinite(x).all()), f"{name}: sample {rid} not finite")
     for k in PATH_KERNELS[name]:
         check(counts.get(k, 0) > 0, f"{name}: {k} never launched on the path")
-    return spec, net, engine, counts
+    return spec, net, engine, counts, results
 
 
 def profile_serve(name: str, serve, out: Path, unit: str) -> None:
@@ -437,10 +485,13 @@ def round_records(path, engine, x, keys, counts, streamed: bool):
                    + pdis.numel() + int(torch.unique(pdis).numel()) * D)
     p_ops = BATCH * D * ((1 + Qb) * kf * (3 * kf - 1) + Qb * kf)
     src = "src/repro_torch/csrc/round_fused.cu"
-    sfx = "[streamed]" if streamed else ""
+    fused_name, predict_name = {
+        "cifar10-cld": ("round_fused", "round_predict"),
+        "cifar10-bdm": ("round_fused[streamed]", f"round_predict[kf={kf}]"),
+        "cifar10-ddpm": ("round_fused[ddpm]", "round_predict[ddpm]")}[path]
     return [
         timed_record(
-            "round_fused" + sfx, path, src,
+            fused_name, path, src,
             "src/repro/kernels/round_fused/kernel.py:293",
             counts.get("round_fused", 0), err_fused,
             lambda: rf.round_fused(ints, keys, blks, dis, bank.diag, x["u"],
@@ -450,8 +501,8 @@ def round_records(path, engine, x, keys, counts, streamed: bool):
             lambda: rf_ref.round_update_ref(*args, **kw_ref),
             f_bytes, f_ops, F32_FLOPS),
         timed_record(
-            f"round_predict[kf={kf}]" if streamed else "round_predict",
-            path, src, "src/repro/kernels/round_fused/kernel.py:362",
+            predict_name, path, src,
+            "src/repro/kernels/round_fused/kernel.py:362",
             counts.get("round_predict", 0), err_pred,
             lambda: rf.round_predict_kernel(pblks, pdis, bank.diag, x["u"],
                                             x["hist"], x["eps_c"], kf=kf),
@@ -462,16 +513,15 @@ def round_records(path, engine, x, keys, counts, streamed: bool):
             p_bytes, p_ops, F32_FLOPS)]
 
 
-def attention_record(path, spec, net, counts, gen, dev):
-    """flash_attention at the DiT's shape (B, 256, 12, 64) bf16 against
-    its plain version, and the DiT's eps with the kernel against the plain
-    attention."""
+def attention_check(path, cfg, n, gen, dev):
+    """flash_attention at the DiT's shape (n, 256, 12, 64) in bf16 and f32
+    against its plain version.  Returns the bf16 (q, k, v) and max abs
+    err."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import attention_ref
-    cfg = spec.score_cfg
     H, S, Dh = cfg.n_heads, cfg.n_tokens, cfg.d_head
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    q, k, v = (rnd(BATCH, S, H, Dh).to(torch.bfloat16) for _ in range(3))
+    q, k, v = (rnd(n, S, H, Dh).to(torch.bfloat16) for _ in range(3))
     att = attn_ops.attention(q, k, v, causal=False)
     att_ref = attention_ref(q, k, v, causal=False)
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -481,15 +531,42 @@ def attention_record(path, spec, net, counts, gen, dev):
     err_att = max_err(att, att_ref)
     ulp_att = ulp_err(att, att_ref)
     err_att32 = max_err(att32, att32_ref)
-    log(f"[{path}] flash_attention vs plain: bf16 max {ulp_att:.1f} bf16 ulp"
-        f" (tol 2: both round the same f32 sums once), max abs err "
-        f"{err_att:.3e} at max|o| {float(att_ref.float().abs().max()):.3e}; "
-        f"f32 {err_att32:.3e} (tol 2e-5, max {ulp_err(att32, att32_ref):.1f}"
-        f" ulp)")
+    log(f"[{path}] flash_attention vs plain at ({n}, {S}, {H}, {Dh}): bf16 "
+        f"max {ulp_att:.1f} bf16 ulp (tol 2: both round the same f32 sums "
+        f"once), max abs err {err_att:.3e} at max|o| "
+        f"{float(att_ref.float().abs().max()):.3e}; f32 {err_att32:.3e} (tol "
+        f"2e-5, max {ulp_err(att32, att32_ref):.1f} ulp)")
     check(ulp_att <= 2 and err_att32 <= 2e-5,
-          f"[{path}] flash_attention beyond tolerance")
+          f"[{path}] flash_attention beyond tolerance at batch {n}")
+    return q, k, v, err_att
 
-    # the DiT at full width, bf16: kernel attention vs the plain version
+
+def attention_timed(name, path, q, k, v, launches, err):
+    """The kernels-line record of the DiT's flash_attention on (q, k, v),
+    with SDPA as the library yardstick."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    n, S, H, Dh = q.shape
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return timed_record(
+        name, path, "src/repro_torch/csrc/attention.cu",
+        "src/repro/kernels/attention/kernel.py:109", launches, err,
+        lambda: attn_ops.attention(q, k, v, causal=False),
+        "flash_fwd_kernel<64", lambda: attention_ref(q, k, v, causal=False),
+        4 * n * S * H * Dh * 2,                      # q, k, v read; o written
+        4 * n * H * S * S * Dh, BF16_FLOPS,          # QK^T and PV
+        library_fn=lambda: sdpa(qh, kh, vh))
+
+
+def attention_record(path, spec, net, counts, gen, dev):
+    """flash_attention at the serving DiT's shape (B, 256, 12, 64) against
+    its plain version, and the DiT's eps at full width, bf16, with the
+    kernel against the plain attention."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    q, k, v, err_att = attention_check(path, spec.score_cfg, BATCH, gen, dev)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     x = rnd(BATCH, *spec.sde.state_shape(DATA))
     tt = torch.rand(BATCH, generator=gen, device=dev)
     with torch.no_grad():
@@ -508,19 +585,8 @@ def attention_record(path, spec, net, counts, gen, dev):
         f"max|eps| = {err_dit:.3e} (tol 5e-2), max|eps| {scale:.3e}")
     check(math.isfinite(scale) and err_dit <= 5e-2,
           f"[{path}] DiT eps beyond tolerance")
-
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    return timed_record(
-        "flash_attention" if path == "cifar10-cld" else "flash_attention[bdm]",
-        path, "src/repro_torch/csrc/attention.cu",
-        "src/repro/kernels/attention/kernel.py:109",
-        counts.get("flash_attention", 0), err_att,
-        lambda: attn_ops.attention(q, k, v, causal=False), "flash_fwd_kernel<64",
-        lambda: attention_ref(q, k, v, causal=False),
-        4 * BATCH * S * H * Dh * 2,                  # q, k, v read; o written
-        4 * BATCH * H * S * S * Dh, BF16_FLOPS,      # QK^T and PV
-        library_fn=lambda: sdpa(qh, kh, vh))
+    return attention_timed("flash_attention" + PATH_TAG[path], path, q, k, v,
+                           counts.get("flash_attention", 0), err_att)
 
 
 def dct_records(counts, gen, dev):
@@ -590,7 +656,8 @@ def noise_check(keys64, keys, kcs, algs, n):
     from repro_torch import random as prng
     from repro_torch.kernels.round_fused import ops as rf
     from repro_torch.kernels.round_fused import ref as rf_ref
-    z_k, bits_k = rf.step_noise(keys, kcs, algs, n=n, with_bits=True)
+    z_k, bits_k = rf.step_noise_kernel(keys, kcs, algs, n=n,
+                                         with_bits=True)
     step_key = prng.fold_in(prng.fold_in(keys64, algs), kcs)
     f = torch.arange(n, device=keys.device)[None]
     bits_p = prng.bits_at(step_key[:, None], f, n)
@@ -618,6 +685,338 @@ def reduced_check(name, mix):
         f"max|sample| = {rel:.3e} (tol 1e-3)")
     check(rel <= 1e-3, f"reduced {name}: samples on the card disagree with "
           "the CPU")
+
+
+# ---- path A: the lockstep gDDIM sampler; path B: the pre-fusion step -------
+def sliced_w2(x: np.ndarray, y: np.ndarray, n_proj: int = 128,
+              seed: int = 0) -> float:
+    """Sliced 2-Wasserstein distance between point clouds (flattened); a
+    copy of benchmarks/common.py's."""
+    x = np.asarray(x, np.float64).reshape(len(x), -1)
+    y = np.asarray(y, np.float64).reshape(len(y), -1)
+    d = x.shape[1]
+    rng = np.random.default_rng(seed)
+    proj = rng.standard_normal((d, n_proj))
+    proj /= np.linalg.norm(proj, axis=0, keepdims=True)
+    xp = np.sort(x @ proj, axis=0)
+    yp = np.sort(y @ proj, axis=0)
+    n = min(len(xp), len(yp))
+    xq = xp[np.linspace(0, len(xp) - 1, n).astype(int)]
+    yq = yp[np.linspace(0, len(yp) - 1, n).astype(int)]
+    return float(np.sqrt(np.mean((xq - yq) ** 2)))
+
+
+def run_name(run: dict) -> str:
+    return ",".join(k if v is True else f"{k}={v}" for k, v in run.items())
+
+
+def updates_of(run: dict) -> int:
+    """State updates (= eps evals) one sampler run makes: N, or 2N - 1
+    with the corrector (none on the last step)."""
+    return 2 * run["nfe"] - 1 if run.get("corrector") else run["nfe"]
+
+
+def make_sampler(name: str, dev, reduced: bool = False, seed: int = SEED,
+                 sde=None):
+    """The spec (optionally with another instance of its SDE, to reuse a
+    solved R_t grid) and seeded weights for config `name`."""
+    from repro_torch.configs import get_diffusion
+    spec = get_diffusion(name, reduced=reduced)
+    if sde is not None:
+        spec = dataclasses.replace(spec, sde=sde)
+    net = spec.init(seed=seed, device=dev)
+    randomize_score(net, spec.score_cfg.d_model, seed + 1)
+    return spec, net
+
+
+def drive_path_a(name: str, dev, card: str, out: Path):
+    """Path A: `DiffusionSpec.sample` at full width, n = A_N, each of
+    A_RUNS after a warm-up run, the launch counts set to 0 just before and
+    read just after each.  Every state update is one launch of the
+    family's update kernel and every eval one flash_attention per layer.
+    One more run under a CUPTI trace gives the device share.  Returns
+    (spec, net, [per-run dict])."""
+    from repro_torch import random as prng
+    from repro_torch.core import build_sampler_coeffs, time_grid
+    from repro_torch.kernels import cuda as kc
+    spec, net = make_sampler(name, dev)
+    kernel = A_KERNEL[name]
+    layers = spec.score_cfg.n_layers
+    t0 = time.perf_counter()
+    spec.sample(net, prng.PRNGKey(1000, dev), A_N, device=dev, **A_RUNS[0])
+    torch.cuda.synchronize()
+    log(f"[{name}] path A warm-up run (CLD's first one solves its R_t "
+        f"grid): {time.perf_counter() - t0:.2f}s")
+    runs = []
+    for r, run in enumerate(A_RUNS):
+        t0 = time.perf_counter()
+        build_sampler_coeffs(spec.sde, time_grid(spec.sde, run["nfe"]),
+                             q=run.get("q", 2), lam=run.get("lam", 0.0),
+                             kt=spec.kt)
+        stage1 = time.perf_counter() - t0
+        kc.reset_launches()
+        t0 = time.perf_counter()
+        x = spec.sample(net, prng.PRNGKey(SEED + r, dev), A_N, device=dev,
+                        **run)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kc.launches()
+        n_up = updates_of(run)
+        check(x.shape == (A_N,) + DATA and bool(torch.isfinite(x).all()),
+              f"[{name}] path A {run_name(run)}: samples malformed")
+        check(counts.get(kernel, 0) == n_up, f"[{name}] path A "
+              f"{run_name(run)}: {counts.get(kernel, 0)} {kernel} launches "
+              f"for {n_up} state updates")
+        check(counts.get("flash_attention", 0) == n_up * layers,
+              f"[{name}] path A {run_name(run)}: flash_attention launched "
+              f"{counts.get('flash_attention', 0)} times, not {n_up} evals "
+              f"x {layers} layers")
+        log(f"[{name}] path A {run_name(run)}: {A_N} samples in {dt:.4f}s "
+            f"(the call builds Stage I on the host: {stage1:.4f}s when "
+            f"timed alone just before), {n_up} updates; launches {counts}")
+        log(f"path A samples/s [{name} {run_name(run)}]: {A_N / dt:.3f} "
+            f"({card})")
+        runs.append(dict(run=run_name(run), seconds=dt, stage1=stage1,
+                         counts=counts))
+    profile_serve(f"{name} path A",
+                  lambda: spec.sample(net, prng.PRNGKey(2000, dev), A_N,
+                                      device=dev, **A_RUNS[0]).shape[0],
+                  out / f"sample_profile_{name.split('-')[1]}.txt",
+                  "samples")
+    return spec, net, runs
+
+
+def drive_path_b(name: str, path, mix, card: str):
+    """Path B: the engine of `name` serves the same list again through the
+    pre-fusion round step (its `_steps` swapped for the stitched step), the
+    counts set to 0 just before and read just after.  Every request must
+    equal the fused engine's bit for bit: on the card both chains compute
+    each factor apply as (blk * diag) * z summed left to right without
+    fused multiply-adds, draw the same noise bits (the step_noise device
+    code) and run the same evals.  Returns the counts."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.launch.steps import make_diffusion_round_step_stitched
+    spec, _, engine, _, fused = path
+    fused_steps = engine._steps
+    engine._steps = {
+        cls: make_diffusion_round_step_stitched(
+            spec, fam_index=engine.cache.fam_index(cls[0]))
+        for cls in fused_steps}
+    try:
+        kc.reset_launches()
+        t0 = time.perf_counter()
+        results = engine.serve(requests(mix, SEED))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kc.launches()
+    finally:
+        engine._steps = fused_steps
+    log(f"[{name}] path B (stitched round step): {len(results)} samples in "
+        f"{dt:.4f}s, {len(results) / dt:.3f} samples/s ({card}); launches "
+        f"{counts}")
+    check(sorted(results) == sorted(fused), f"[{name}] path B: missing "
+          "results")
+    for k in PATH_B_KERNELS[name]:
+        check(counts.get(k, 0) > 0, f"[{name}] path B: {k} never launched")
+    check(counts.get("round_fused", 0) == 0,
+          f"[{name}] path B: the fused commit ran on the stitched path")
+    same = [rid for rid in fused if np.array_equal(results[rid], fused[rid])]
+    rel = max(float(np.abs(results[r] - fused[r]).max()
+                    / np.abs(fused[r]).max()) for r in fused)
+    log(f"[{name}] path B vs the fused engine: {len(same)} of {len(fused)} "
+        f"requests bitwise (tol: bitwise), max abs err / max|sample| "
+        f"{rel:.3e}")
+    check(len(same) == len(fused), f"[{name}] path B samples differ from the "
+          "fused engine's")
+    return counts
+
+
+def ei_records(path_a, b_counts, gen, dev):
+    """ei_update at path A's shapes (n = A_N, k 1 and 2, q 1-3, f32 and
+    bf16) and apply_factored at path B's (B = BATCH, k 1 and 2) against
+    their plain versions (bitwise: the same unfused products and
+    left-to-right sums), then timed beside their bounds and a library
+    call: one einsum over the pre-stacked [u; eps] and [psi; C] for
+    ei_update, `torch.bmm(blk, z) * diag` (two calls) for apply_factored.
+    bdm_ei_update is timed again at path A's shape."""
+    from repro_torch.kernels.dct2 import ops as dct_ops
+    from repro_torch.kernels.dct2 import ref as dct_ref
+    from repro_torch.kernels.ei_update import ops as ei_ops
+    from repro_torch.kernels.ei_update import ref as ei_ref
+    D = int(np.prod(DATA))
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    hgen = torch.Generator().manual_seed(17)
+    worst = 0.0
+    for k in (1, 2):
+        for q in (1, 2, 3):
+            for dtype in (torch.float32, torch.bfloat16):
+                u, eps = rnd(A_N, k, D).to(dtype), rnd(q, A_N, k, D).to(dtype)
+                psi = torch.randn(k, k, generator=hgen)
+                C = torch.randn(q, k, k, generator=hgen)
+                got = ei_ops.ei_update(u, eps, psi, C)
+                want = ei_ref.ei_update_ref(u, eps, psi, C)
+                torch.cuda.synchronize()
+                worst = max(worst, max_err(got, want))
+                check(torch.equal(got, want), f"ei_update (k {k}, q {q}, "
+                      f"{dtype}) differs from its plain version")
+    log(f"ei_update vs plain at ({A_N}, k, {D}), k 1-2, q 1-3, f32 and "
+        f"bf16: bitwise (tol: bitwise), max abs err {worst:.3e}")
+    af = {}
+    for k in (1, 2):
+        blk, diag, z = rnd(BATCH, k, k), rnd(BATCH, D), rnd(BATCH, k, D)
+        got = ei_ops.apply_factored(blk, diag, z)
+        want = ei_ref.apply_factored_ref(blk, diag, z)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"apply_factored (k {k}) differs from "
+              "its plain version")
+        af[k] = (blk, diag, z, max_err(got, want))
+    log(f"apply_factored vs plain at ({BATCH}, k, {D}), k 1-2: bitwise "
+        "(tol: bitwise)")
+
+    src = "src/repro_torch/csrc/ei_update.cu"
+    records = []
+    q = 2
+    for name, k in (("cifar10-ddpm", 1), ("cifar10-cld", 2)):
+        u, eps = rnd(A_N, k, D), rnd(q, A_N, k, D)
+        psi = torch.randn(k, k, generator=hgen)
+        C = torch.randn(q, k, k, generator=hgen)
+        stacked = torch.cat([u[None], eps]).contiguous()
+        coef = torch.cat([psi[None], C]).to(dev)
+        err = max_err(ei_ops.ei_update(u, eps, psi, C),
+                      ei_ref.ei_update_ref(u, eps, psi, C))
+        check(err == 0.0, f"ei_update (k {k}, q {q}) differs from its plain "
+              "version on the timed inputs")
+        records.append(timed_record(
+            f"ei_update[k={k}]", f"{name} (path A)", src,
+            "src/repro/kernels/ei_update/kernel.py:96",
+            sum(r["counts"].get("ei_update", 0) for r in path_a[name][2]),
+            err, lambda: ei_ops.ei_update(u, eps, psi, C), "ei_update_kernel",
+            lambda: ei_ref.ei_update_ref(u, eps, psi, C),
+            4 * (q + 2) * u.numel(), 2 * u.numel() * k * (q + 1), F32_FLOPS,
+            library_fn=lambda: torch.einsum("jck,jbkd->bcd", coef,
+                                            stacked)))
+        records[-1]["launches_per_run"] = [
+            r["counts"].get("ei_update", 0) for r in path_a[name][2]]
+    for name, k in (("cifar10-cld", 2), ("cifar10-bdm", 1)):
+        blk, diag, z, err = af[k]
+        records.append(timed_record(
+            f"apply_factored[k={k}]", f"{name} (path B)", src,
+            "src/repro/kernels/ei_update/kernel.py:56",
+            b_counts[name].get("apply_factored", 0), err,
+            lambda: ei_ops.apply_factored(blk, diag, z),
+            "apply_factored_kernel",
+            lambda: ei_ref.apply_factored_ref(blk, diag, z),
+            4 * (2 * z.numel() + diag.numel() + blk.numel()),
+            BATCH * D * (2 * k * k + k * (k - 1)), F32_FLOPS,
+            library_fn=lambda: torch.bmm(blk, z) * diag[:, None]))
+        records[-1]["library_calls"] = 2
+
+    # bdm_ei_update at path A's shape: (A_N, 32, 32, 3), q = 2
+    H, W, Ch = DATA
+    u, eps = rnd(A_N, H, W, Ch), rnd(q, A_N, H, W, Ch)
+    psi, C = torch.rand(H, W, 1, generator=gen, device=dev), rnd(q, H, W, 1)
+    got = dct_ops.bdm_ei_update(u, eps, psi, C)
+    want = dct_ref.bdm_ei_update_ref(u, eps, psi, C)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    oscale = float(want.abs().max())
+    log(f"bdm_ei_update (n {A_N}, q {q}) vs plain: max abs err {err:.3e} at "
+        f"max|out| {oscale:.3e} (tol 1e-6 of max|out|)")
+    check(err <= 1e-6 * oscale, "bdm_ei_update beyond tolerance at path A's "
+          "shape")
+    a_runs = path_a["cifar10-bdm"][2]
+    records.append(timed_record(
+        f"bdm_ei_update[n={A_N}]", "cifar10-bdm (path A)",
+        "src/repro_torch/csrc/dct2.cu", "src/repro/kernels/dct2/kernel.py:53",
+        sum(r["counts"].get("bdm_ei_update", 0) for r in a_runs), err,
+        lambda: dct_ops.bdm_ei_update(u, eps, psi, C), "bdm_ei_update_kernel",
+        lambda: dct_ref.bdm_ei_update_ref(u, eps, psi, C),
+        4 * ((q + 2) * u.numel() + psi.numel() + C.numel()),
+        A_N * Ch * ((q + 2) * fast_dct2_ops(H, W) + (2 * q + 1) * H * W),
+        F32_FLOPS))
+    records[-1]["launches_per_run"] = [
+        r["counts"].get("bdm_ei_update", 0) for r in a_runs]
+    return records
+
+
+def quality_check(cld_sde, dev):
+    """Sampling quality with no trained weights: CLD on the exact score of
+    examples/quickstart.py's four-mode 2-D mixture, QUALITY_N samples on the
+    card.  gDDIM (q = 2, NFE 10) must put 15-35% of the samples in each
+    mode (nearest centre) with each mode's mean within 0.1 of its centre;
+    the sliced W2 of gDDIM and of Euler-Maruyama at NFE 10 against samples
+    of the mixture is printed."""
+    from repro_torch import random as prng
+    from repro_torch.core import (build_sampler_coeffs, sample_em,
+                                  sample_gddim, time_grid)
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.sde import ExactScore, GaussianMixture
+    ang = np.linspace(0, 2 * np.pi, 4, endpoint=False)
+    centres = np.stack([2.5 * np.cos(ang), 2.5 * np.sin(ang)], -1)
+    mix = GaussianMixture(centres, np.full(4, 0.08), np.ones(4))
+    ts = time_grid(cld_sde, 10)
+    co = build_sampler_coeffs(cld_sde, ts, q=2)
+    eps_fn, _ = ExactScore(cld_sde, mix).eps_fn_for_grid(ts)
+    k_prior, k_em, k_data = prng.split(prng.PRNGKey(11, dev), 3)
+    u_T = cld_sde.prior_sample(k_prior, QUALITY_N, (2,))
+    kc.reset_launches()
+    x = cld_sde.project_data(sample_gddim(cld_sde, co, eps_fn, u_T, q=2))
+    torch.cuda.synchronize()
+    check(kc.launches().get("ei_update", 0) == 10, "quality: gDDIM did not "
+          "run one ei_update launch per step")
+    x_em = cld_sde.project_data(sample_em(cld_sde, co, eps_fn, u_T, k_em,
+                                          lam=1.0))
+    truth = mix.sample(k_data, 2 * QUALITY_N).cpu().numpy()
+    truth, floor_draw = truth[:QUALITY_N], truth[QUALITY_N:]
+    x, x_em = x.cpu().numpy(), x_em.cpu().numpy()
+    check(bool(np.isfinite(x).all()), "quality: gDDIM samples not finite")
+    def modes(y):
+        """Each mode's share of y (nearest centre), its mean's distance
+        from the centre and the spread within it (the data's is 0.08)."""
+        m = np.argmin(((y[:, None] - centres[None]) ** 2).sum(-1), axis=1)
+        share = np.bincount(m, minlength=4) / len(y)
+        dist = [float(np.linalg.norm(y[m == i].mean(0) - centres[i]))
+                if np.any(m == i) else float("inf") for i in range(4)]
+        spread = float(np.mean([y[m == i].std(0).mean() for i in range(4)
+                                if np.any(m == i)]))
+        return share, dist, spread
+
+    share, dist, spread = modes(x)
+    share_em, dist_em, spread_em = modes(x_em)
+    w2, w2_em = sliced_w2(x, truth), sliced_w2(x_em, truth)
+    log(f"quality (CLD, exact score, four modes, {QUALITY_N} samples, NFE "
+        f"10): gDDIM q=2 mode shares {np.round(share, 4).tolist()} (15-35%), "
+        f"|mean - centre| {np.round(dist, 4).tolist()} (<= 0.1), spread "
+        f"within a mode {spread:.4f} (data 0.08); Euler-Maruyama shares "
+        f"{np.round(share_em, 4).tolist()}, |mean - centre| max "
+        f"{max(dist_em):.4f}, spread {spread_em:.4f}; sliced W2 gDDIM "
+        f"{w2:.4f}, Euler-Maruyama {w2_em:.4f}, two draws of the mixture "
+        f"itself {sliced_w2(floor_draw, truth):.4f} (the metric's floor at "
+        f"this size: a share off by a percent moves mass between modes 3.5 "
+        f"apart)")
+    check(bool(np.all((share >= 0.15) & (share <= 0.35))),
+          f"quality: mode shares {share.tolist()} outside 15-35%")
+    check(max(dist) <= 0.1, f"quality: a mode's mean is {max(dist):.3f} from "
+          "its centre")
+
+
+def reduced_sample_check(name: str, sde=None) -> None:
+    """Path A on the reduced config: the card (kernels) against the CPU
+    (plain versions), same seeded weights and key, within 1e-3 of the
+    sample scale, for a corrector run and a stochastic run."""
+    from repro_torch import random as prng
+    for run in (dict(nfe=5, q=2, corrector=True), dict(nfe=5, lam=0.5)):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            spec, net = make_sampler(name, d, reduced=True, seed=5, sde=sde)
+            outs[d] = spec.sample(net, prng.PRNGKey(50, d), 4, device=d,
+                                  **run).cpu().numpy()
+        rel = float(np.abs(outs["cuda"] - outs["cpu"]).max()
+                    / np.abs(outs["cpu"]).max())
+        log(f"reduced {name} path A {run_name(run)}, card (kernels) vs CPU "
+            f"(plain): max abs err / max|sample| = {rel:.3e} (tol 1e-3)")
+        check(rel <= 1e-3, f"reduced {name} path A {run_name(run)}: card "
+              "disagrees with the CPU")
 
 
 def lm_requests(vocab: int, seed0: int, n: int = N_REQUESTS, lens=None,
@@ -945,7 +1344,7 @@ def main() -> int:
     # ---- 4. each kernel against its plain version, timed -----------------
     records = []
     gen = torch.Generator(device=dev).manual_seed(7)
-    for name, (spec, net, engine, counts) in paths.items():
+    for name, (spec, net, engine, counts, _) in paths.items():
         x = slot_inputs(engine, mix, dev, gen)
         records += round_records(name, engine, x, keys, counts,
                                  streamed=name == "cifar10-bdm")
@@ -959,7 +1358,8 @@ def main() -> int:
         "step_noise", "cifar10-bdm", "src/repro_torch/csrc/round_fused.cu",
         "src/repro/kernels/round_fused/kernel.py:110",
         bdm_counts.get("step_noise", 0), err_noise,
-        lambda: rf.step_noise(keys, kcs, algs, n=n), "step_noise_kernel",
+        lambda: rf.step_noise_kernel(keys, kcs, algs, n=n),
+        "step_noise_kernel",
         lambda: rf_ref.draw_step_noise(keys, kcs, algs, (n,)),
         4 * (BATCH * (2 + 2) + BATCH * n), 0, F32_FLOPS))
 
@@ -970,9 +1370,42 @@ def main() -> int:
         n.startswith("flash_attention[causal") for n in names),
         "the kernels record lacks a form of flash_attention")
 
-    # ---- 5. reduced configs: the card vs the plain version on the CPU ----
+    # ---- 5. path A: the lockstep sampler; path B: the pre-fusion step ----
+    t_new = time.perf_counter()
+    path_a = {name: drive_path_a(name, dev, card, out_dir)
+              for name in PATH_A}
+    # every path-A eval runs the DiT's attention at batch A_N
+    cfg = path_a[PATH_A[0]][0].score_cfg
+    check(all((s.score_cfg.n_heads, s.score_cfg.n_tokens, s.score_cfg.d_head)
+              == (cfg.n_heads, cfg.n_tokens, cfg.d_head)
+              for s, _, _ in path_a.values()), "path A's DiTs differ in "
+          "attention shape")
+    att = attention_check("path A", cfg, A_N, gen, dev)
+    records.append(attention_timed(
+        f"flash_attention[n={A_N}]", "path A (ddpm, cld, bdm)", *att[:3],
+        sum(r["counts"].get("flash_attention", 0)
+            for _, _, runs in path_a.values() for r in runs), att[3]))
+    b_counts = {name: drive_path_b(name, paths[name], mix, card)
+                for name in PATH_B_KERNELS}
+    records += ei_records(path_a, b_counts, gen, dev)
+    for rec in records:
+        if rec["name"] == "bdm_ei_update":
+            rec.update(path="cifar10-bdm (path A; timed at B = 4)",
+                       launches=sum(r["counts"].get("bdm_ei_update", 0)
+                                    for r in path_a["cifar10-bdm"][2]))
+    quality_check(path_a["cifar10-cld"][0].sde, dev)
+    covered = {r["replaces"] for r in records}
+    check(set(TPU_KERNELS) <= covered, "the kernels record lacks "
+          f"{sorted(set(TPU_KERNELS) - covered)}")
+    log(f"paths A and B, the ei_update records and the quality check: "
+        f"{time.perf_counter() - t_new:.2f}s")
+
+    # ---- 6. reduced configs: the card vs the plain version on the CPU ----
     for name in PATH_KERNELS:
         reduced_check(name, mix)
+    for name in PATH_A:
+        reduced_sample_check(name, sde=path_a[name][0].sde
+                             if name == "cifar10-cld" else None)
     reduced_lm_check()
 
     log(smi())

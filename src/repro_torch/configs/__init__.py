@@ -15,6 +15,7 @@ ARCH_IDS: List[str] = list(ARCH_MODULES)
 DIFFUSION_MODULES: Dict[str, str] = {
     "cifar10-cld": "paper_cld",
     "cifar10-bdm": "paper_bdm",
+    "cifar10-ddpm": "paper_ddpm",
 }
 
 

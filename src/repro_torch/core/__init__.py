@@ -1,9 +1,12 @@
-"""gDDIM core: the Stage-I coefficient pipeline and the serving bank."""
+"""gDDIM core: the Stage-I coefficient pipeline, the serving bank and the
+Stage-II samplers."""
 from .coeffs import (SamplerCoeffs, SamplerConfig, CoeffCache, FactoredBank,
                      factor_coeff, build_sampler_coeffs, bucket_size,
                      time_grid, ALGORITHMS, ALG_GDDIM, ALG_GMM, ALG_ACCEL,
                      GMM_RHO, GMM_SCALE, GMM_C, GMM_SALT, effective_q,
                      algorithm_coeff_stacks)
+from .gddim import (sample_gddim, sample_gddim_stochastic, sample_em,
+                    sample_heun, sample_ancestral_bdm, sample_rk45_np)
 
 __all__ = [
     "SamplerCoeffs", "SamplerConfig", "CoeffCache", "FactoredBank",
@@ -11,4 +14,6 @@ __all__ = [
     "ALGORITHMS", "ALG_GDDIM", "ALG_GMM", "ALG_ACCEL",
     "GMM_RHO", "GMM_SCALE", "GMM_C", "GMM_SALT",
     "effective_q", "algorithm_coeff_stacks",
+    "sample_gddim", "sample_gddim_stochastic", "sample_em", "sample_heun",
+    "sample_ancestral_bdm", "sample_rk45_np",
 ]

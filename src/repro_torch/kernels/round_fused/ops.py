@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import cuda
-from .ref import round_predict_ref, round_update_ref
+from .ref import draw_step_noise, round_predict_ref, round_update_ref
 
 Tensor = torch.Tensor
 
@@ -158,12 +158,13 @@ def round_predict_kernel(blks, dis, pool, u, hist, eps_c, *, kf: int) -> Tensor:
     return out
 
 
-def step_noise(keys: Tensor, kc: Tensor, alg: Tensor, *, n: int,
-               with_bits: bool = False):
-    """The round kernel's Eq. 22 draw on its own: (B, n) f32 innovations
-    over each slot's flat state index, the law of `ref.draw_step_noise`
-    (keys (B, 2) int32 key words, kc and alg (B,) int32).  With
-    `with_bits` also returns the threefry bits (B, n) as int32 patterns."""
+def step_noise_kernel(keys: Tensor, kc: Tensor, alg: Tensor, *, n: int,
+                      with_bits: bool = False):
+    """One launch of the round kernel's Eq. 22 draw on its own: (B, n) f32
+    innovations over each slot's flat state index, the law of
+    `ref.draw_step_noise` (keys (B, 2) int32 key words, kc and alg (B,)
+    int32).  With `with_bits` also returns the threefry bits (B, n) as
+    int32 patterns."""
     B = keys.shape[0]
     dev = keys.device
     cuda.require(keys, "keys", torch.int32, (B, 2))
@@ -179,6 +180,15 @@ def step_noise(keys: Tensor, kc: Tensor, alg: Tensor, *, n: int,
     cuda.check("round_fused", rc, "step_noise")
     cuda.count_launch("step_noise")
     return (z, bits) if with_bits else z
+
+
+def step_noise(keys: Tensor, kc: Tensor, alg: Tensor, *, n: int) -> Tensor:
+    """The per-slot Eq. 22 innovations (B, n) over each slot's flat state
+    index: the plain `draw_step_noise` for CPU keys, the `step_noise`
+    kernel for CUDA ones."""
+    if cuda.device_of(keys) == "cpu":
+        return draw_step_noise(keys, kc, alg, (n,))
+    return step_noise_kernel(keys, kc, alg, n=n)
 
 
 def round_predict(u, hist, kc, cfg, bank, eps_c, *, kf: int) -> Tensor:
@@ -205,7 +215,7 @@ def round_update(u, hist, k, kc, cfg, fam, prec, keys, active, bank, eps_c,
     n = int(np.prod(state_shape))
     noise_c = None
     if not sde.canonical_noise_is_reshape:
-        z = step_noise(keys, kc, bank.alg[cfg], n=n)
+        z = step_noise_kernel(keys, kc, bank.alg[cfg], n=n)
         noise_c = sde.canonicalize(
             z.reshape((u.shape[0],) + tuple(state_shape))).contiguous()
     ints = _stage_ints(k, kc, cfg, fam, prec, active, bank,

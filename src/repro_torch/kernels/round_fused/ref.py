@@ -22,32 +22,10 @@ import torch
 
 from ... import random as prng
 from ...core.coeffs import ALG_GMM, GMM_C, GMM_SALT
+from ..ei_update.ops import pad_channels
+from ..ei_update.ref import apply_factored_ref
 
 Tensor = torch.Tensor
-
-
-def pad_channels(z: Tensor, k_pad: int) -> Tensor:
-    """Zero-pad a packed (B, k, D) state's channel axis to k_pad rows."""
-    k = z.shape[1]
-    if k_pad < k:
-        raise ValueError(f"k_pad {k_pad} < k {k}")
-    if k_pad == k:
-        return z
-    return torch.cat([z, z.new_zeros((z.shape[0], k_pad - k) + z.shape[2:])],
-                     dim=1)
-
-
-def apply_factored_ref(blk: Tensor, diag: Tensor, z: Tensor) -> Tensor:
-    """Factored per-example coefficient application: blk (B, k, k), diag
-    (B, D), z (B, k, D) -> (B, k, D).  Each term is (blk[c, c2] * diag) *
-    z[c2] and the terms are summed left to right — the multiply-reduce of
-    the dense coefficient blk (x) diag, and the arithmetic the CUDA round
-    kernels repeat (without fused multiply-adds) bit for bit."""
-    coeff = blk[..., None] * diag[:, None, None, :]          # (B, k, k, D)
-    out = coeff[:, :, 0] * z[:, None, 0]
-    for c2 in range(1, z.shape[1]):
-        out = out + coeff[:, :, c2] * z[:, None, c2]
-    return out
 
 
 def draw_step_noise(keys: Tensor, kc: Tensor, alg: Tensor,

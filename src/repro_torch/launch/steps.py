@@ -12,6 +12,15 @@
                                          post-eval commit (one CUDA launch
                                          on the card, the plain version on
                                          a CPU state)
+  make_diffusion_serve_step(spec,        one gDDIM step: single-config
+                            coeffs)      mode over one Stage-I set, or bank
+                                         mode over the packed slot state,
+                                         every factor apply one
+                                         `apply_factored` launch
+  make_diffusion_round_step_stitched(    the pre-fusion round: bank mode
+      spec, fam)                         plus the retire masking — the
+                                         independent composition the fused
+                                         round step is held against
 """
 from __future__ import annotations
 
@@ -108,3 +117,146 @@ def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0):
                               keys=state.keys, active=a2)
 
     return round_step
+
+
+def make_diffusion_round_step_stitched(spec, fam_index: int = 0):
+    """The PRE-FUSION round step: `make_diffusion_serve_step`'s bank-mode
+    chain plus the retire masking, as the JAX engine ran it before the
+    fused round kernel.  Same signature and result as
+    `make_diffusion_round_step`, so an engine serves through it when its
+    `_steps` table holds it: the differential oracle of the fused step (on
+    the CPU the two are bitwise equal; on the card each factor apply is an
+    `apply_factored` launch and the noise a `step_noise` launch)."""
+    from ..serve.state import DiffusionState
+
+    bank_step = make_diffusion_serve_step(spec)
+
+    @torch.no_grad()
+    def round_step(params, state, bank, with_corrector: bool = False):
+        u_next, hist_next = bank_step(
+            params, state.u, state.hist, state.k, state.cfg, state.keys,
+            bank, with_corrector=with_corrector)
+        mine = state.active & (state.fam == fam_index)
+        rmask = lambda x: mine.reshape((-1,) + (1,) * (x.dim() - 1))
+        k = torch.where(mine, state.k + 1, state.k)
+        return DiffusionState(
+            u=torch.where(rmask(state.u), u_next, state.u),
+            hist=torch.where(rmask(state.hist), hist_next, state.hist),
+            k=k, cfg=state.cfg, fam=state.fam, prec=state.prec,
+            keys=state.keys,
+            active=torch.where(mine, k < bank.n_steps[state.cfg],
+                               state.active))
+
+    return round_step
+
+
+def make_diffusion_serve_step(spec, coeffs=None):
+    """One gDDIM step — the inner loop of a sampling service.  Two modes:
+
+    * **single-config** (Stage-I `coeffs` given): a deterministic q=1
+      predictor step over one coefficient set, `serve_step(params, u, k)`
+      with `k` the step index 0..N-1 (advancing t_{N-k} -> t_{N-k-1}): an
+      int (or 0-d tensor) when the batch steps in lockstep, or a (B,)
+      tensor of per-slot indices.  Plain tensor ops (`sde.apply`,
+      `sde.apply_batched`).
+
+    * **bank mode** (`coeffs=None`): the heterogeneous-config step over
+      the canonical packed slot layout, `u` (B, K, D) and `hist`
+      (B, Qb, K, D), with the stacked `FactoredBank` as an argument:
+
+          u, hist = step(params, u, hist, k, cfg, keys, bank,
+                         with_corrector=...)
+
+      with `k` / `cfg` (B,) int32 and `keys` (B, 2) int32 key words.
+      Every slot b gathers its psi / pC / cC / B / P_chol factor pairs by
+      (cfg[b], k[b]) — a (kf, kf) block sliced to this family's width and
+      the (B, D) diagonal pool row its id points at — and applies each
+      with `kernels.ei_update.ops.apply_factored` (one launch per apply on
+      the card).  The Eq. 22 noise is the serving law (keyed key -> alg ->
+      kc, drawn in state space by `kernels.round_fused.ops.step_noise`)
+      and canonicalized by the family (BDM: the dct2 kernel).  The
+      stochastic branch is computed for every slot and selected per slot;
+      the corrector (`with_corrector`) is applied only to slots whose
+      config asks for it and never on a slot's final step (Alg. 1).
+      Slots of other families ride along and are discarded by the round
+      step's family mask."""
+    sde = spec.sde
+    if coeffs is not None:
+        N = coeffs.psi.shape[0]
+
+        @torch.no_grad()
+        def serve_step(params, u, k):
+            if not torch.is_tensor(k) or k.dim() == 0:
+                k = int(k)
+                t = torch.full((u.shape[0],), float(coeffs.ts[N - k]),
+                               dtype=torch.float32, device=u.device)
+                eps = spec.eps_model(params, u, t)
+                return sde.apply(coeffs.psi[k].to(u.device), u) + \
+                    sde.apply(coeffs.pC[k, 0].to(u.device), eps)
+            kc = k.clamp(0, N - 1).to(u.device).long()
+            t = coeffs.ts.to(u.device)[N - kc]
+            eps = spec.eps_model(params, u, t)
+            return sde.apply_batched(coeffs.psi.to(u.device)[kc], u) + \
+                sde.apply_batched(coeffs.pC.to(u.device)[kc, 0], eps)
+
+        return serve_step
+
+    from ..kernels.ei_update.ops import apply_factored, pad_channels
+    from ..kernels.round_fused.ops import step_noise
+
+    kf = sde.packed_k                       # this family's channel rows
+    data_shape = tuple(spec.data_shape)
+    state_shape = sde.state_shape(data_shape)
+    n = 1
+    for s_ in state_shape:
+        n *= int(s_)
+
+    @torch.no_grad()
+    def bank_step(params, u, hist, k, cfg, keys, bank, with_corrector=False):
+        B, K = u.shape[0], u.shape[1]
+        kc = torch.minimum(k.clamp_min(0), bank.n_steps[cfg] - 1)
+        t = bank.t_cur[cfg, kc]
+        # this family's slice of the packed state and of each gathered
+        # factor pair: (B, kf, kf) block + the (B, D) pool row it points at
+        ub = u[:, :kf]
+        gat = lambda nm: (getattr(bank, nm + "_blk")[cfg, kc][:, :kf, :kf],
+                          bank.diag[getattr(bank, nm + "_di")[cfg, kc]])
+        gatq = lambda nm, j: (
+            getattr(bank, nm + "_blk")[cfg, kc, j][:, :kf, :kf],
+            bank.diag[getattr(bank, nm + "_di")[cfg, kc, j]])
+
+        eps = spec.eps_model(params, sde.decanonicalize(ub, data_shape), t)
+        eps_c = sde.canonicalize(eps)                         # (B, kf, D)
+        hist = torch.cat([pad_channels(eps_c, K)[:, None], hist[:, :-1]],
+                         dim=1)
+        Qb = hist.shape[1]
+
+        u_lin = apply_factored(*gat("psi"), ub)
+        # predictor (Eq. 19a): slots with q_c < Qb hit zero-padded pC rows
+        u_pred = u_lin
+        for j in range(Qb):
+            u_pred = u_pred + apply_factored(*gatq("pC", j), hist[:, j, :kf])
+        # stochastic branch (Eq. 22/23), computed for every slot
+        noise = step_noise(keys, kc, bank.alg[cfg], n=n).reshape(
+            (B,) + tuple(state_shape)).to(u.dtype)
+        u_sto = u_lin + apply_factored(*gat("B"), eps_c) \
+            + apply_factored(*gat("P_chol"), sde.canonicalize(noise))
+        bmask = lambda m: m.reshape(-1, 1, 1)
+        u_next = torch.where(bmask(bank.stochastic[cfg]), u_sto, u_pred)
+
+        if with_corrector:
+            eps_n = spec.eps_model(
+                params, sde.decanonicalize(u_pred, data_shape),
+                bank.t_nxt[cfg, kc])
+            u_corr = u_lin + apply_factored(*gatq("cC", 0),
+                                            sde.canonicalize(eps_n))
+            for j in range(1, Qb):
+                u_corr = u_corr + apply_factored(*gatq("cC", j),
+                                                 hist[:, j - 1, :kf])
+            # Alg. 1: no corrector on the final step (k == N_c - 1)
+            use_c = bank.corrector[cfg] & (kc < bank.n_steps[cfg] - 1)
+            u_next = torch.where(bmask(use_c), u_corr, u_next)
+        # re-attach the padding rows
+        return torch.cat([u_next, u[:, kf:]], dim=1), hist
+
+    return bank_step

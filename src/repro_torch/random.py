@@ -241,6 +241,13 @@ def bits_to_normal(bits: Tensor) -> Tensor:
     return SQRT2 * erf_inv(bits_to_uniform(bits))
 
 
+def uniform(key: Tensor, shape: Sequence[int]) -> Tensor:
+    """`jax.random.uniform(key, shape)` in f32, on [0, 1): the bits' 23
+    high mantissa bits under exponent 0, minus one."""
+    fb = (random_bits(key, shape) >> 9) | 0x3F800000
+    return fb.to(torch.int32).view(torch.float32) - 1.0
+
+
 def normal(key: Tensor, shape: Sequence[int],
            dtype: torch.dtype = torch.float32) -> Tensor:
     """`jax.random.normal(key, shape, dtype)` for a single key (f32 draw,

@@ -198,6 +198,25 @@ def dct_matrix(n: int) -> np.ndarray:
     return c.astype(np.float64)
 
 
+def dct_axes_np(x: np.ndarray, axes: Sequence[int],
+                inverse: bool = False) -> np.ndarray:
+    """Host float64 orthonormal DCT-II (or its inverse) along `axes`, one
+    axis at a time in the order given."""
+    for ax in axes:
+        c = dct_matrix(x.shape[ax])
+        c = c.T if inverse else c
+        x = np.moveaxis(np.tensordot(c, np.moveaxis(x, ax, 0), axes=1), 0, ax)
+    return x
+
+
+def sde_apply_np_freq(sde, coeff, u) -> np.ndarray:
+    """Host float64 IDCT(coeff * DCT(u)) over a frequency-diagonal SDE's
+    spatial axes, for a batch of states (B, *data)."""
+    axes = tuple(a + 1 for a in sde.spatial_axes_in_data)
+    y = dct_axes_np(np.asarray(u, np.float64), axes)
+    return dct_axes_np(y * coeff, axes, inverse=True)
+
+
 def _dct_axes(x: Tensor, axes: Sequence[int], inverse: bool) -> Tensor:
     for ax in axes:
         c = dct_matrix(x.shape[ax])
@@ -304,6 +323,11 @@ class LinearSDE:
     # ---- device-side application -------------------------------------------
     def apply(self, coeff, u: Tensor) -> Tensor:
         """Apply one coefficient to a batched state u."""
+        raise NotImplementedError
+
+    def apply_batched(self, coeff, u: Tensor) -> Tensor:
+        """Apply a *per-example* coefficient (leading batch axis) to u:
+        coeff (B, *coeff_shape), u (B, *state_shape)."""
         raise NotImplementedError
 
     def apply_factored(self, blk, diag, u: Tensor) -> Tensor:

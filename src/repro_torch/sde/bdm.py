@@ -119,6 +119,26 @@ class BDM(LinearSDE):
         # sigma_t I solves Eq. 17 here because Sigma_t is isotropic
         return np.sqrt(self.Sigma_np(t))
 
+    def ancestral_coeffs(self, ts: np.ndarray):
+        """Discrete ancestral-sampling coefficients (HS22's original
+        sampler), per frequency, for each step t -> s of a decreasing grid:
+        the DDPM-style Gaussian posterior q(y_s | y_t, y_0) of the
+        frequency-space process.  Returns the stacked (coef_ut, coef_u0,
+        alpha_t, sigma_t, std) arrays (host float64), one row per step."""
+        outs = []
+        for t, s in zip(ts[:-1], ts[1:]):
+            a_t, a_s = self.alpha_k(t), self.alpha_k(s)
+            s2_t, s2_s = self.sigma2(t), self.sigma2(s)
+            a_ts = a_t / a_s
+            s2_ts = np.maximum(s2_t - a_ts ** 2 * s2_s, 1e-20)
+            denom = np.maximum(s2_t, 1e-20)
+            coef_ut = a_ts * s2_s / denom
+            coef_u0 = a_s * s2_ts / denom
+            var = s2_ts * s2_s / denom
+            # u0-prediction from eps: u0 = (u_t - sigma_t eps)/alpha_t  (per freq)
+            outs.append((coef_ut, coef_u0, a_t, np.sqrt(s2_t), np.sqrt(var)))
+        return [np.stack([o[i] for o in outs]) for i in range(5)]
+
     # ---- device side -------------------------------------------------------------
     @property
     def _axes(self) -> Tuple[int, ...]:
@@ -129,6 +149,10 @@ class BDM(LinearSDE):
         freq_shape)."""
         coeff = torch.as_tensor(coeff, dtype=u.dtype, device=u.device)
         return idct_nd(dct_nd(u, self._axes) * coeff, self._axes)
+
+    def apply_batched(self, coeff, u: Tensor) -> Tensor:
+        # coeff: (B, *freq_shape) broadcasts against the per-example spectrum
+        return self.apply(coeff, u)
 
     def apply_factored(self, blk, diag, u: Tensor) -> Tensor:
         """Factored-coefficient application in the DCT frequency basis:

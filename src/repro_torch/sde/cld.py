@@ -124,5 +124,10 @@ class CLD(LinearSDE):
         coeff = torch.as_tensor(coeff, dtype=u.dtype, device=u.device)
         return torch.einsum("ij,bj...->bi...", coeff, u)
 
+    def apply_batched(self, coeff, u: Tensor) -> Tensor:
+        """coeff (B, 2, 2) against u (B, 2, *data)."""
+        coeff = torch.as_tensor(coeff, dtype=u.dtype, device=u.device)
+        return torch.einsum("bij,bj...->bi...", coeff, u)
+
     def project_data(self, u: Tensor) -> Tensor:
         return u[:, 0]

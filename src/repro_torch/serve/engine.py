@@ -54,7 +54,7 @@ import torch
 
 from .. import random as prng
 from ..core import CoeffCache, SamplerConfig
-from ..kernels.round_fused.ref import pad_channels
+from ..kernels.ei_update.ops import pad_channels
 from ..launch import steps as steps_lib
 from ..sde.base import family_name
 from .api import ServeRequest

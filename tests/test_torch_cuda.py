@@ -23,7 +23,10 @@ Tiers (kernel vs plain version on the same card):
     order);
   * dct2 / bdm_ei_update: within 1e-6 of max |x| (max |out| for the
     update) of the plain version, whose products cuBLAS sums in another
-    order (f32 throughout: TF32 is off).
+    order (f32 throughout: TF32 is off);
+  * ei_update (f32 and bf16) and apply_factored: BITWISE against the plain
+    version (the same unfused products and left-to-right sums, one
+    rounding to bf16 at the end).
 """
 import pytest
 import torch
@@ -37,6 +40,8 @@ from repro_torch.kernels.dct2 import ops as dct_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.dct2 import ref as dct_ref
+from repro_torch.kernels.ei_update import ops as ei_ops
+from repro_torch.kernels.ei_update import ref as ei_ref
 from repro_torch.kernels.round_fused import ops as rf
 from repro_torch.kernels.round_fused import ref as rf_ref
 from repro_torch.sde import BDM, CLD
@@ -140,7 +145,7 @@ def test_noise_bits_exact_and_normals_within_2_ulp(dev):
     keys = prng.to_int32_bits(keys64)
     kcs = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=dev)
     algs = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
-    z, bits = rf.step_noise(keys, kcs, algs, n=n, with_bits=True)
+    z, bits = rf.step_noise_kernel(keys, kcs, algs, n=n, with_bits=True)
     step = prng.fold_in(prng.fold_in(keys64, algs), kcs)
     f = torch.arange(n, device=dev)[None]
     want_bits = prng.bits_at(step[:, None], f, n)
@@ -397,7 +402,66 @@ def test_dct2_refuses_what_it_does_not_take(dev):
 
 
 def test_both_libraries_build(dev):
-    names = ["round_fused", "attention", "dct2", "decode_attention"]
+    names = ["round_fused", "attention", "dct2", "decode_attention",
+             "ei_update"]
     reports = kc.build_all(names)
     assert set(reports) == set(names)
     assert all("error" not in r for r in reports.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k,D,q", [(64, 1, 3072, 2), (64, 2, 3072, 3),
+                                     (3, 2, 300, 4), (2, 1, 77, 0)])
+def test_ei_update_matches_plain_version(dev, B, k, D, q, dtype):
+    g = torch.Generator().manual_seed(B + k + D + q)
+    u = torch.randn(B, k, D, generator=g).to(dtype).to(dev)
+    eps = torch.randn(q, B, k, D, generator=g).to(dtype).to(dev)
+    psi, C = torch.randn(k, k, generator=g), torch.randn(q, k, k, generator=g)
+    kc.reset_launches()
+    got = ei_ops.ei_update(u, eps, psi, C)
+    want = ei_ref.ei_update_ref(u, eps, psi, C)
+    torch.cuda.synchronize()
+    assert kc.launches()["ei_update"] == 1 and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,k,D", [(4, 1, 3072), (4, 2, 3072), (3, 2, 300)])
+def test_apply_factored_matches_plain_version(dev, B, k, D):
+    g = torch.Generator().manual_seed(B + k + D)
+    z = torch.randn(B, k, D, generator=g).to(dev)
+    blk = torch.randn(B, k, k, generator=g).to(dev)
+    diag = torch.randn(B, D, generator=g).to(dev)
+    kc.reset_launches()
+    got = ei_ops.apply_factored(blk, diag, z)
+    want = ei_ref.apply_factored_ref(blk, diag, z)
+    # a strided state (the serving step's hist[:, j, :kf]) is made
+    # contiguous by the wrapper
+    wide = torch.cat([z, z], dim=1)[:, :k]
+    strided = ei_ops.apply_factored(blk, diag, wide)
+    torch.cuda.synchronize()
+    assert kc.launches()["apply_factored"] == 2
+    assert torch.equal(got, want) and torch.equal(strided, want)
+
+
+def test_ei_update_refuses_what_it_does_not_take(dev):
+    u = torch.zeros(2, 2, 8, device=dev)
+    with pytest.raises(ValueError):                      # q = 5 > 4
+        ei_ops.ei_update(u, torch.zeros(5, 2, 2, 8, device=dev),
+                         torch.eye(2), torch.zeros(5, 2, 2))
+    with pytest.raises(ValueError):                      # k = 3 > 2
+        ei_ops.ei_update(torch.zeros(2, 3, 8, device=dev),
+                         torch.zeros(1, 2, 3, 8, device=dev),
+                         torch.eye(3), torch.zeros(1, 3, 3))
+    with pytest.raises(TypeError):                       # eps dtype differs
+        ei_ops.ei_update(u, torch.zeros(1, 2, 2, 8, device=dev,
+                                        dtype=torch.bfloat16),
+                         torch.eye(2), torch.zeros(1, 2, 2))
+    with pytest.raises(ValueError):                      # C of another q
+        ei_ops.ei_update(u, torch.zeros(1, 2, 2, 8, device=dev),
+                         torch.eye(2), torch.zeros(2, 2, 2))
+    with pytest.raises(TypeError):                       # f64 state
+        ei_ops.apply_factored(torch.zeros(2, 2, 2, device=dev),
+                              torch.zeros(2, 8, device=dev),
+                              torch.zeros(2, 2, 8, device=dev,
+                                          dtype=torch.float64))
+

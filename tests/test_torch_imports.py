@@ -23,7 +23,16 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# the modules of each slice, which the walk must reach
+SLICE_MODULES = [
+    "repro_torch.kernels.ei_update.ops", "repro_torch.kernels.ei_update.ref",
+    "repro_torch.core.gddim", "repro_torch.sde.vpsde",
+    "repro_torch.sde.mixture", "repro_torch.train.losses",
+    "repro_torch.configs.paper_ddpm", "repro_torch.launch.steps",
+]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -31,8 +40,10 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30, out.stdout              # every submodule was walked
+    first, walked = out.stdout.strip().split("\n")
+    n, bad = first.split(" ", 1)
+    assert int(n) >= 50, out.stdout              # every submodule was walked
+    assert set(SLICE_MODULES) <= set(walked.split()), walked
     assert bad == "[]", f"the port pulled in {bad}"
 
 
