@@ -59,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -165,10 +166,15 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, kernel: str = ""):
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    # CUPTI may drop a launch at the edge of the trace window, and once (in
-    # one run of this script, for bdm_ei_update; not reproduced, cause not
-    # known) it delivered a whole trace without the kernel's events: up to
-    # three traces are taken before the run fails, and every retry is logged
+    # CUPTI may drop launches from a trace, or (in a few runs of this
+    # script; cause not known) deliver a trace without the kernel's events
+    # or with only some of them: up to three traces are taken until one is
+    # full (every call launches at least one kernel), every retry is
+    # logged, the fullest trace is kept, and the run fails if none holds
+    # the kernel.  A multi-kernel call's time is its traced events' sum
+    # over the calls, so a partial trace makes it a lower bound (logged).
+    need = iters // 2 if kernel else iters
+    durs = []
     for attempt in range(1, 4):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -176,14 +182,16 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, kernel: str = ""):
                 fn()
             torch.cuda.synchronize()
         events = kernel_events(prof)
-        durs = [e.time_range.elapsed_us() / 1e3 for e in events
-                if kernel in e.name]
-        if len(durs) >= (iters // 2 if kernel else 1):
+        traced = [e.time_range.elapsed_us() / 1e3 for e in events
+                  if kernel in e.name]
+        if len(traced) > len(durs):
+            durs = traced
+        if len(traced) >= need:
             if attempt > 1:
-                log(f"  trace {attempt} holds {len(durs)} device events"
+                log(f"  trace {attempt} holds {len(traced)} device events"
                     f"{' named ' + kernel if kernel else ''}")
             break
-        log(f"  trace of {iters} calls holds {len(durs)} device events"
+        log(f"  trace of {iters} calls holds {len(traced)} device events"
             f"{' named ' + kernel if kernel else ''} (of {len(events)}: "
             f"{sorted({e.name[:60] for e in events})[:4]}); tracing again")
     check(len(durs) >= (iters // 2 if kernel else 1),
@@ -191,7 +199,27 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, kernel: str = ""):
           f"traced for {iters} calls: no device time measured")
     if kernel:
         return float(np.median(durs)), wall
+    if len(durs) < iters:
+        log(f"  kept a trace of {len(durs)} device events for {iters} "
+            f"calls: the time per call below is a lower bound")
     return sum(durs) / iters, wall
+
+
+def kernel_label(mangled: str) -> str:
+    """`name<args>` from a kernel template's mangled name in a ptxas
+    report (its integer, bool and element-type arguments: enough to tell
+    the instances apart); other names are returned cut to 72 characters."""
+    m = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled[:72]
+    args = []
+    for num, flag, typ in re.findall(r"Li(-?\d+)E|Lb([01])E|(f|13__nv_bf)",
+                                     m.group(2)):
+        if typ:
+            args.append("float" if typ == "f" else "bf16")
+        else:
+            args.append(num or ("true" if flag == "1" else "false"))
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -553,7 +581,8 @@ def attention_timed(name, path, q, k, v, launches, err):
         name, path, "src/repro_torch/csrc/attention.cu",
         "src/repro/kernels/attention/kernel.py:109", launches, err,
         lambda: attn_ops.attention(q, k, v, causal=False),
-        "flash_fwd_kernel<64", lambda: attention_ref(q, k, v, causal=False),
+        "flash_dit_wgmma_kernel<64",
+        lambda: attention_ref(q, k, v, causal=False),
         4 * n * S * H * Dh * 2,                      # q, k, v read; o written
         4 * n * H * S * S * Dh, BF16_FLOPS,          # QK^T and PV
         library_fn=lambda: sdpa(qh, kh, vh))
@@ -1198,7 +1227,8 @@ def lm_records(engine, counts, gen, dev):
             LM_ARCH, "src/repro_torch/csrc/attention.cu",
             "src/repro/kernels/attention/kernel.py:109",
             counts.get("flash_attention", 0), max_err(got, want),
-            lambda: attn_ops.attention(q, k, v, **kw), "flash_lm_kernel",
+            lambda: attn_ops.attention(q, k, v, **kw),
+            "flash_lm_wgmma_kernel<256",
             lambda: attention_ref(q, k, v, **kw), nbytes, ops, BF16_FLOPS,
             library_fn=lambda: sdpa(qh, kh, vh, attn_mask=keep)))
     return records
@@ -1309,8 +1339,10 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f}s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas[{name}] {line.strip()}")
+            if "Compiling entry" in line:
+                log(f"  ptxas[{name}] {kernel_label(line.split(chr(39))[1])}")
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas[{name}]   {line.strip()}")
 
     # ---- 2. the kernel's noise draw against the plain PRNG --------------
     g = torch.Generator().manual_seed(3)

@@ -8,8 +8,12 @@ rtol = atol = 2e-6 (values of order 1; dense softmax vs online softmax
 differ only in summation order); bf16 inputs compare after the f32
 softmax and the final cast, within one bf16 ulp (rtol 8e-3).  The CUDA
 kernel is held against the plain version on the card, by
-tests/test_torch_cuda.py and by chip_smoke.py at the DiT's full shapes.
+tests/test_torch_cuda.py and by chip_smoke.py at the DiT's full shapes;
+here a torch emulation of its bf16 tensor-core arithmetic (the split P)
+is held within 2 bf16 ulp of the plain version and the Pallas kernel.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,3 +117,90 @@ def test_kernel_refuses_what_it_does_not_cover():
         ops.flash_attention(x, x, x)             # a CPU tensor is no kernel input
     with pytest.raises(ValueError):
         ops.flash_attention_causal(x, x, x)      # either form
+
+
+# ---- the numerical design of the bf16 tensor-core kernel -------------------
+# A torch emulation of the kernel's arithmetic (never called by any path):
+# bf16 q and k with f32 scores, 64-key tiles with the online rescale in
+# exp2 form, and P V with P split into bf16 hi and lo halves, each product
+# summed in f32.  Held within 2 bf16 ulp, the card tests' and chip_smoke's
+# tolerance, of the plain version and of the Pallas kernel; with P rounded
+# to one bf16 instead, the same inputs exceed 2 ulp: the reason the kernel
+# splits P.
+
+# (q shape, k shape, causal, window, q_offset, Pallas block_q): a DiT-like
+# case (two key tiles) and a causal/window/GQA case (rep 4, q_offset 16,
+# every row keeping its own key)
+TC_CASES = {"dit": ((2, 128, 2, 64), (2, 128, 2, 64), False, None, 0, 64),
+            "causal": ((1, 96, 4, 32), (1, 128, 1, 32), True, 40, 16, 32)}
+
+
+def _tc_emulation(q, k, v, *, causal, window, q_offset, split, tile=64):
+    B, Sq, Hq, Dh = q.shape
+    Sk, rep = k.shape[1], Hq // k.shape[2]
+    sl2 = math.log2(math.e) / math.sqrt(Dh)
+    qf = q.float().transpose(1, 2)                          # (B, Hq, Sq, Dh)
+    kf, vf = (x.float().transpose(1, 2).repeat_interleave(rep, 1)
+              for x in (k, v))
+    m = torch.full((B, Hq, Sq, 1), -math.inf)
+    l = torch.zeros(B, Hq, Sq, 1)
+    acc = torch.zeros(B, Hq, Sq, Dh)
+    q_pos = q_offset + torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)   # f32 sums
+        k_pos = torch.arange(k0, min(k0 + tile, Sk))[None]
+        keep = torch.ones_like(k_pos <= q_pos)
+        if causal:
+            keep &= k_pos <= q_pos
+        if window is not None:
+            keep &= k_pos > q_pos - window
+        s = s.masked_fill(~keep, -math.inf)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        mu = torch.where(mx == -math.inf, 0.0, mx * sl2)
+        alpha = torch.exp2(m * sl2 - mu)
+        p = torch.exp2(s * sl2 - mu)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + tile]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + tile]
+        acc = acc * alpha + pv
+        m = mx
+    o = acc / torch.where(l == 0, 1.0, l)
+    return o.transpose(1, 2).bfloat16()
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 ulps of want at max(|want|, max|want| /
+    1024), the measure of chip_smoke.py's ulp_err."""
+    w = want.float()
+    _, e = torch.frexp(w.abs().clamp_min(float(w.abs().max()) / 1024))
+    return float(((got.float() - w).abs() / torch.ldexp(torch.ones_like(w),
+                                                          e - 8)).max())
+
+
+def _tc_inputs(case):
+    qs, ks, causal, window, q_off, bq = TC_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .bfloat16() for s in (qs, ks, ks))
+    return q, k, v, dict(causal=causal, window=window, q_offset=q_off), bq
+
+
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_arithmetic_within_2_ulp(case):
+    q, k, v, kw, bq = _tc_inputs(case)
+    got = _tc_emulation(q, k, v, split=True, **kw)
+    assert _bf16_ulps(got, tref(q, k, v, **kw)) <= 2
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                  for x in (q, k, v))
+    want = jflash(jq, jk, jv, block_q=bq, block_k=64, interpret=True, **kw)
+    assert _bf16_ulps(got, torch.from_numpy(
+        np.array(want.astype(jnp.float32)))) <= 2
+
+
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_single_bf16_p_exceeds_2_ulp(case):
+    q, k, v, kw, _ = _tc_inputs(case)
+    got = _tc_emulation(q, k, v, split=False, **kw)
+    assert _bf16_ulps(got, tref(q, k, v, **kw)) > 2

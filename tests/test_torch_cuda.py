@@ -15,9 +15,9 @@ Tiers (kernel vs plain version on the same card):
     version on the same canonical noise; through the whole wrapper (the
     kernel's own draw, the dct2 kernel, the commit) within rtol = atol =
     1e-5 of the plain draw and plain DCT;
-  * flash_attention: f32 within 2e-5, bf16 within one bf16 ulp of the
-    output (8e-3 relative at |o| of order 1); the causal/window/GQA form
-    (LM prefill) f32 within 2e-5, bf16 within 2 bf16 ulp;
+  * flash_attention, both forms (the DiT's and the causal/window/GQA LM
+    prefill): f32 within 2e-5, bf16 within 2 bf16 ulp (the ulp at
+    max(|o|, max|o| / 1024), chip_smoke.py's measure);
   * decode_attention (split pass + merge): f32 within 1e-5, bf16 within
     2 bf16 ulp (both round the same f32 softmax once, summed in another
     order);
@@ -155,8 +155,12 @@ def test_noise_bits_exact_and_normals_within_2_ulp(dev):
     assert int(ulp.max()) <= 2
 
 
+# (B, S, H, Dh): the reduced DiT, ragged S (24, 100, 200: not multiples of
+# the 64-row tile), d_head 32 / 64 / 128, the engine's (4, 256, 12, 64) and
+# path A's (64, 256, 12, 64)
 @pytest.mark.parametrize("shape", [(3, 4, 2, 32), (2, 24, 3, 32),
-                                   (2, 100, 2, 128), (4, 256, 12, 64)])
+                                   (2, 100, 2, 128), (4, 256, 12, 64),
+                                   (2, 200, 3, 64), (64, 256, 12, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(dev, shape, dtype):
     g = torch.Generator().manual_seed(sum(shape))
@@ -167,8 +171,40 @@ def test_flash_attention_matches_plain_version(dev, shape, dtype):
     want = attention_ref(q, k, v, causal=False)
     torch.cuda.synchronize()
     assert kc.launches()["flash_attention"] == 1 and got.dtype == dtype
-    tol = 2e-5 if dtype == torch.float32 else 8e-3
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert torch.isfinite(got).all() and _bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Dh", [32, 64])
+def test_bf16_runs_on_the_tensor_core_kernels(dev, causal, Dh):
+    """bf16 calls launch the warpgroup (wgmma) kernels at d_head 64 and the
+    mma.sync kernels at 32; f32 calls the CUDA-core kernels (names from a
+    profiler trace); one launch per call either way."""
+    q = torch.randn(2, 80, 4, Dh, device=dev)
+    kw = dict(causal=causal, window=30 if causal else None)
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = q.to(dtype)
+        attn_ops.attention(x, x, x, **kw)               # build, opt in
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            attn_ops.attention(x, x, x, **kw)
+            torch.cuda.synchronize()
+        assert kc.launches()["flash_attention"] == 1
+        names[dtype] = {e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "flash" in e.name}
+    form = "lm" if causal else "dit"
+    f32 = "flash_lm_kernel" if causal else "flash_fwd_kernel"
+    bf16 = f"flash_{form}_{'wgmma' if Dh == 64 else 'mma'}_kernel"
+    assert len(names[torch.float32]) == 1 and f32 in names[torch.float32].pop()
+    assert len(names[torch.bfloat16]) == 1 and bf16 in \
+        names[torch.bfloat16].pop()
 
 
 def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
@@ -293,11 +329,23 @@ def test_misaligned_inputs_take_the_elementwise_loads(dev, dtype):
 
 # (B, Sq, Hq, Sk, Hkv, Dh, window, q_offset): gemma3-1b's prefill of a
 # 640- and a 96-token prompt into the 1024-long cache (window layers and
-# global layers), a ragged Sq, and a small GQA case with a device q_offset
+# global layers), a ragged Sq, and a small GQA case with a device q_offset;
+# then the edges of the 64 x 64 tiling: S 200 (not a multiple of 64), 37
+# queries at a device q_offset of 50, window 1 (each row sees one key), a
+# window under the tile size over several tiles, rep 8 GQA, d_head 32 and
+# 64, rows with no visible key (q_offset past the window's reach: 0), and a
+# block with no key tile at all
 CAUSAL_CASES = [(1, 640, 4, 1024, 1, 256, 512, 0),
                 (2, 96, 4, 1024, 1, 256, None, 0),
                 (2, 50, 4, 64, 1, 128, 20, 0),
-                (2, 12, 4, 32, 2, 16, 6, 9)]
+                (2, 12, 4, 32, 2, 16, 6, 9),
+                (2, 200, 4, 200, 2, 64, None, 0),
+                (2, 37, 4, 100, 1, 32, None, 50),
+                (1, 130, 2, 130, 2, 64, 1, 0),
+                (1, 300, 2, 400, 1, 128, 40, 5),
+                (1, 130, 8, 200, 1, 64, 77, 3),
+                (1, 20, 2, 32, 1, 16, 5, 30),
+                (1, 8, 2, 16, 1, 256, 4, 100)]
 
 
 @pytest.mark.parametrize("case", CAUSAL_CASES)
