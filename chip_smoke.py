@@ -19,8 +19,8 @@ random weights from a seed:
     KV head of width 256, vocab 262144, bf16, window 512 on 5 layers of 6;
     batch 4, max_len 1024; 8 requests with prompts of 96 and 640 tokens,
     48 new tokens each): flash_attention in its causal/window/GQA form for
-    every prefill, decode_attention (split pass and merge pass) in every
-    layer of every decode round.
+    every prefill, decode_attention (one launch a call) in every layer of
+    every decode round.
 
 Each path is served once with the launch counts set to 0 just before and
 read just after; every kernel of the path must have launched, and the
@@ -90,7 +90,7 @@ PATH_TAG = {"cifar10-cld": "", "cifar10-bdm": "[bdm]",
 LM_ARCH = "gemma3-1b"
 LM_LENS = (96, 640)             # prompt lengths, alternating by request
 LM_MAX_NEW, LM_MAX_LEN = 48, 1024
-LM_KERNELS = ("flash_attention", "decode_attention", "decode_attention_merge")
+LM_KERNELS = ("flash_attention", "decode_attention")
 LIBRARIES = ("round_fused", "attention", "dct2", "decode_attention",
              "ei_update")
 # path A: DiffusionSpec.sample at full width, n = A_N, after a warm-up run
@@ -1125,6 +1125,38 @@ def causal_pairs(Sq: int, Sk: int, window, q_offset: int = 0) -> int:
     return n
 
 
+def decode_cluster_sweep(q, k, v, cl, window):
+    """The decode kernel's median launch time at 4, 8 and 16 blocks per
+    cluster on the path's inputs, each within 2 bf16 ulp of the wrapper's
+    output (the split of the band changes only the order of the sums).
+    The entry point is called directly, outside the wrapper and its launch
+    count, to show what the wrapper's choice costs against its
+    neighbours."""
+    import ctypes
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    B, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    fn = kc.function("decode_attention", "repro_decode_attention",
+                     dec_ops._ARGS)
+    want = dec_ops.decode_attention(q, k, v, cl, window=window)
+    out = torch.empty_like(q)
+    sweep = {}
+    for nb in (4, 8, 16):
+        def call():
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
+                    out.data_ptr(), B, S, Hkv, Hq // Hkv, Dh, window or 0,
+                    1, ctypes.c_float(1.0 / math.sqrt(Dh)), nb,
+                    kc.stream_ptr(q))
+            kc.check("decode_attention", rc, f"decode_attention nb {nb}")
+        call()
+        torch.cuda.synchronize()
+        check(ulp_err(out, want) <= 2,
+              f"decode_attention at {nb} blocks per cluster disagrees")
+        sweep[nb] = time_ms(call, kernel="decode_attention_kernel")[0]
+    return sweep
+
+
 def lm_records(engine, counts, gen, dev):
     """decode_attention and the causal flash_attention at the token path's
     shapes (bf16; window 512 and global), each against its plain version
@@ -1171,23 +1203,20 @@ def lm_records(engine, counts, gen, dev):
         kh = k.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
         vh = v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
         mask = keep[:, None, None, :]
-        split_ms = time_ms(lambda: dec_ops.decode_attention(
-            q, k, v, cl, window=window), kernel="decode_split_kernel")[0]
-        merge_ms = time_ms(lambda: dec_ops.decode_attention(
-            q, k, v, cl, window=window), kernel="decode_merge_kernel")[0]
-        log(f"  decode_attention passes: split {split_ms:.5f} ms, merge "
-            f"{merge_ms:.5f} ms (median launch durations)")
+        sweep = decode_cluster_sweep(q, k, v, cl, window)
+        log(f"  decode_attention by blocks per cluster (median launch, ms; "
+            f"the wrapper takes {dec_ops.cluster_blocks(S)}): {sweep}")
         rec = timed_record(
             "decode_attention" + ("[global]" if window is None else ""),
             LM_ARCH, "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:93",
             counts.get("decode_attention", 0), max_err(got, want),
-            lambda: dec_ops.decode_attention(q, k, v, cl, window=window), "",
+            lambda: dec_ops.decode_attention(q, k, v, cl, window=window),
+            "decode_attention_kernel",
             lambda: decode_attention_ref(q, k, v, cl, window=window),
             nbytes, ops, BF16_FLOPS,
             library_fn=lambda: sdpa(qh, kh, vh, attn_mask=mask))
-        rec.update(launches_merge=counts.get("decode_attention_merge", 0),
-                   split_ms=split_ms, merge_ms=merge_ms)
+        rec.update(cluster_sweep_ms=sweep)
         records.append(rec)
 
     # prefill: one 640-token prompt into the 1024-long cache (G = 1, as the

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy wrappers (PTX) for the bf16 attention
-// kernels: warp-wide mma.sync m16n8k16 with f32 accumulators, ldmatrix
-// (plain and transposed) from shared memory, and 16-byte cp.async with
-// zero fill.  Fragment layouts are PTX's for m16n8k16 (lane = 4 g + t):
+// kernels (decode_attention.cu and dct2.cu take only the cp.async ones):
+// mma.sync m16n8k16 with f32 accumulators, ldmatrix (plain and
+// transposed) from shared memory, and 16-byte cp.async with zero fill.
+// Fragment layouts are PTX's for m16n8k16 (lane = 4 g + t):
 //   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                     a3 (g+8, 2t+8..), two bf16 per register, the lower
 //                     column in the low half;

@@ -1,7 +1,7 @@
-// Tile staging shared by the attention kernels (attention.cu,
-// decode_attention.cu): element conversion to and from f32, and the copy
-// of a tile of bf16 or f32 rows from global memory into shared memory as
-// f32.  Included by .cu files only; each translation unit gets its own
+// Tile staging shared by the attention kernels: element conversion to and
+// from f32 (attention.cu, decode_attention.cu), and the copy of a tile of
+// bf16 or f32 rows from global memory into shared memory as f32
+// (attention.cu).  Included by .cu files only; each translation unit gets its own
 // copy (an unnamed namespace), as with the rest of their helpers.
 #pragma once
 

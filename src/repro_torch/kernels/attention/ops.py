@@ -8,10 +8,12 @@ one of the two forms of the hand-written flash kernel
     Hq), Sq != Sk, q_offset an int or a device scalar, head width 16, 32,
     64, 128 or 256.
 
-Both take bf16, which runs on the tensor cores (`flash_dit_mma_kernel`,
-`flash_lm_mma_kernel`), and f32, which runs on the CUDA cores
-(`flash_fwd_kernel`, `flash_lm_kernel`).  A CUDA call outside these forms
-raises: it is never sent to the plain version.
+Both take bf16, which runs on the tensor cores (`flash_dit_wgmma_kernel`
+and `flash_lm_wgmma_kernel` at head width 64, 128 or 256;
+`flash_dit_mma_kernel` and `flash_lm_mma_kernel`, mma.sync, at 16 or 32),
+and f32, which runs on the CUDA cores (`flash_fwd_kernel`,
+`flash_lm_kernel`).  A CUDA call outside these forms raises: it is never
+sent to the plain version.
 """
 from __future__ import annotations
 

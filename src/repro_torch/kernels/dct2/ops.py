@@ -3,7 +3,9 @@
 Both dispatch on the tensor's device: a CPU tensor runs the plain version
 (`ref.py`), a CUDA tensor the hand-written kernel of `csrc/dct2.cu`, one
 launch each, or raises.  The kernels take f32 channels-last (B, H, W, Ch)
-tiles with H, W <= 64.
+tiles with H, W <= 64.  The dct2 kernel computes A X B^T, one block per
+(b, channel, band of output rows); the wrapper hands it the direction's
+matrices (C_h, C_w^T forward; C_h^T, C_w inverse).
 """
 from __future__ import annotations
 
@@ -21,18 +23,20 @@ Tensor = torch.Tensor
 
 MAX_SIDE = 64
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# x y ch cw | B H W Ch inverse | stream
-_DCT2_ARGS = [_VP] * 4 + [_I] * 5 + [_VP]
+# x y a bt | B H W Ch | stream
+_DCT2_ARGS = [_VP] * 4 + [_I] * 4 + [_VP]
 # u eps psi C out ch cw | B H W Ch q | stream
 _BDM_ARGS = [_VP] * 7 + [_I] * 5 + [_VP]
 
 
 @functools.lru_cache(maxsize=None)
-def dct_matrix_f32(n: int, device: torch.device) -> Tensor:
-    """The orthonormal DCT-II matrix as an f32 device buffer, cached per
-    (n, device): the host float64 matrix cast once, the values the plain
-    version multiplies by."""
-    return torch.as_tensor(dct_matrix(n), dtype=torch.float32,
+def dct_matrix_f32(n: int, device: torch.device,
+                   transpose: bool = False) -> Tensor:
+    """The orthonormal DCT-II matrix (or its transpose) as a contiguous f32
+    device buffer, cached per (n, device, transpose): the host float64
+    matrix cast once, the values the plain version multiplies by."""
+    c = dct_matrix(n)
+    return torch.as_tensor(c.T if transpose else c, dtype=torch.float32,
                            device=device).contiguous()
 
 
@@ -57,10 +61,10 @@ def dct2_kernel(x: Tensor, inverse: bool = False) -> Tensor:
     B, H, W, Ch = _check_image(x, "x")
     y = torch.empty_like(x)
     fn = cuda.function("dct2", "repro_dct2", _DCT2_ARGS)
-    rc = fn(x.data_ptr(), y.data_ptr(),
-            dct_matrix_f32(H, x.device).data_ptr(),
-            dct_matrix_f32(W, x.device).data_ptr(), B, H, W, Ch,
-            int(inverse), cuda.stream_ptr(x))
+    a = dct_matrix_f32(H, x.device, transpose=inverse)
+    bt = dct_matrix_f32(W, x.device, transpose=not inverse)
+    rc = fn(x.data_ptr(), y.data_ptr(), a.data_ptr(), bt.data_ptr(), B, H, W,
+            Ch, cuda.stream_ptr(x))
     cuda.check("dct2", rc, "dct2")
     cuda.count_launch("dct2")
     return y

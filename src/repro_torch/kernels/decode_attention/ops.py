@@ -1,7 +1,15 @@
 """Decode-attention dispatch: a CPU tensor runs the plain version, a CUDA
-tensor the hand-written split-K kernel of `csrc/decode_attention.cu`
-(two launches: the split pass, counted as `decode_attention`, and the
-merge pass, counted as `decode_attention_merge`).
+tensor the hand-written kernel of `csrc/decode_attention.cu`, one launch
+a call (counted as `decode_attention`).
+
+The call is bound by latency, not bytes (~1.4 MB at gemma3-1b's decode
+shape).  The kernel splits each row's live band over a cluster of up to
+16 blocks, each block reading `cache_len` on the device (no host sync)
+and taking an even share (bf16 on the tensor cores, f32 on the CUDA
+cores), and merges the blocks' partial softmax sums through distributed
+shared memory: no second launch and no scratch buffers.  The cluster's
+size depends on S alone (`cluster_blocks`), so the grid never depends on
+`cache_len`.
 
 The kernel takes q (B, Hq, Dh) and a cache k/v (B, S, Hkv, Dh) of one
 dtype (f32 or bf16), Dh in 16/32/64/128/256, rep = Hq / Hkv up to 16, a
@@ -21,15 +29,21 @@ from .ref import decode_attention_ref
 
 Tensor = torch.Tensor
 
-CHUNK = 32                      # keys per block of the split pass
+MAX_BLOCKS = 16                 # blocks per cluster (16: non-portable)
 MAX_REP = 16
 HEAD_WIDTHS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# q k v cache_len part_acc part_ml | B S Hkv rep Dh window dtype | scale stream
-_SPLIT_ARGS = [_VP] * 6 + [_I] * 7 + [ctypes.c_float, _VP]
-# part_acc part_ml cache_len o | B S Hkv rep Dh window dtype | stream
-_MERGE_ARGS = [_VP] * 4 + [_I] * 7 + [_VP]
+# q k v cache_len o | B S Hkv rep Dh window dtype | scale | nb | stream
+_ARGS = [_VP] * 5 + [_I] * 7 + [ctypes.c_float, _I, _VP]
+
+
+def cluster_blocks(S: int) -> int:
+    """Blocks sharing one (row, kv head)'s live band: a power of two, about
+    one per 8 cache positions, at most MAX_BLOCKS (a function of S alone,
+    never of the device-side cache_len)."""
+    want = -(-S // 8)
+    return min(MAX_BLOCKS, 1 << max(0, want - 1).bit_length())
 
 
 def _cache_len_rows(cache_len, B: int, device) -> Tensor:
@@ -44,7 +58,7 @@ def _cache_len_rows(cache_len, B: int, device) -> Tensor:
 
 def decode_attention_kernel(q: Tensor, k: Tensor, v: Tensor, cache_len,
                             window: Optional[int] = None) -> Tensor:
-    """The CUDA kernel (split pass + merge pass) on one card."""
+    """The CUDA kernel, one launch, on one card."""
     B, Hq, Dh = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"decode_attention: dtype {q.dtype} not in "
@@ -67,26 +81,13 @@ def decode_attention_kernel(q: Tensor, k: Tensor, v: Tensor, cache_len,
     w = 0 if window is None else int(window)
     if window is not None and w <= 0:
         raise ValueError(f"decode_attention: window {window} must be >= 1")
-    n_chunks = -(-S // CHUNK)
-    part_acc = torch.empty((B, Hkv, n_chunks, rep, Dh), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, Hkv, n_chunks, rep, 2), dtype=torch.float32,
-                          device=q.device)
     out = torch.empty_like(q)
-    dt, st = _DTYPES[q.dtype], cuda.stream_ptr(q)
-    split = cuda.function("decode_attention", "repro_decode_split",
-                          _SPLIT_ARGS)
-    rc = split(q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
-               part_acc.data_ptr(), part_ml.data_ptr(), B, S, Hkv, rep, Dh,
-               w, dt, 1.0 / math.sqrt(Dh), st)
+    fn = cuda.function("decode_attention", "repro_decode_attention", _ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
+            out.data_ptr(), B, S, Hkv, rep, Dh, w, _DTYPES[q.dtype],
+            1.0 / math.sqrt(Dh), cluster_blocks(S), cuda.stream_ptr(q))
     cuda.check("decode_attention", rc, "decode_attention")
     cuda.count_launch("decode_attention")
-    merge = cuda.function("decode_attention", "repro_decode_merge",
-                          _MERGE_ARGS)
-    rc = merge(part_acc.data_ptr(), part_ml.data_ptr(), cl.data_ptr(),
-               out.data_ptr(), B, S, Hkv, rep, Dh, w, dt, st)
-    cuda.check("decode_attention", rc, "decode_attention_merge")
-    cuda.count_launch("decode_attention_merge")
     return out
 
 

@@ -11,7 +11,7 @@ small done/progress mask at most every `SYNC_EVERY` rounds — exactly at
 the next possible retirement when no eos intervenes — and fetches the
 output row of each finished slot.  On the card each layer's prefill
 attention is the causal flash kernel and each decode round's attention
-the split-K `decode_attention` kernel.
+the one-launch `decode_attention` kernel.
 
 `DiffusionEngine` runs one gDDIM update for every active slot per round,
 each slot at its own step index k and with its own sampler config (NFE,
@@ -37,11 +37,11 @@ draws the prior from PRNGKey(seed) and keys the step noise by
 fold_in(PRNGKey(seed), _NOISE_SALT), exactly as the JAX engine does, and
 every per-row computation is row-independent.
 
-A diffusion engine serves one SDE family (CLD or BDM), the "f32" precision
-class (the score net runs in its config's dtype — bf16 at full width — and
-returns f32 eps); a token engine the transformer family.  Both serve
-closed request lists (`serve`) on one device; mesh mode, encoder-decoder
-memory and streaming with preemption are not ported.
+A diffusion engine serves one SDE family (VPSDE, CLD or BDM), the "f32"
+precision class (the score net runs in its config's dtype — bf16 at full
+width — and returns f32 eps); a token engine the transformer family.  Both
+serve closed request lists (`serve`) on one device; mesh mode,
+encoder-decoder memory and streaming with preemption are not ported.
 """
 from __future__ import annotations
 

@@ -105,3 +105,51 @@ def test_non_image_shapes_are_refused(data_shape):
         tops.bdm_ei_update(u, u[None], torch.ones(16, 1), torch.ones(1, 16, 1))
     # to_freq stays on the plain dct_nd over the data's spatial axes
     assert sde.to_freq(u).shape == u.shape
+
+
+# --- the CUDA dct2 kernel's arithmetic, emulated in plain torch -----------
+# csrc/dct2.cu's dct2_kernel cannot run here, so its order of summation is
+# replayed on the CPU in f32 (each fused multiply-add as a product then a
+# sum) and held against the JAX package: Y = A X B^T with A = C_h, B^T =
+# C_w^T (forward) or A = C_h^T, B^T = C_w (inverse); one block per (b,
+# channel, band of output rows), min(H, 8) bands; each output's sum in
+# four accumulators (term i into accumulator i mod 4), combined as (a0 +
+# a1) + (a2 + a3).
+
+def _band_rows(H: int) -> int:
+    bands = min(H, 8)
+    return -(-H // bands)
+
+
+def _product4(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a (..., r, n) @ m (..., n, c) in the kernel's order."""
+    acc = [torch.zeros(a.shape[:-1] + m.shape[-1:]) for _ in range(4)]
+    for i in range(a.shape[-1]):
+        acc[i % 4] = acc[i % 4] + a[..., :, i:i + 1] * m[..., i:i + 1, :]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _emulate_dct2(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    B, H, W, Ch = x.shape
+    ch = torch.as_tensor(tdct_matrix(H), dtype=torch.float32)
+    cw = torch.as_tensor(tdct_matrix(W), dtype=torch.float32)
+    a, bt = (ch.T, cw) if inverse else (ch, cw.T)
+    tiles = x.permute(0, 3, 1, 2)                     # (B, Ch, H, W)
+    R = _band_rows(H)
+    bands = [_product4(_product4(a[h0:h0 + R], tiles), bt)
+             for h0 in range(0, H, R)]
+    return torch.cat(bands, dim=2).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", SHAPES + [(1, 13, 20, 2)])
+def test_kernel_arithmetic_matches_jax(shape, inverse):
+    x = np.random.default_rng(sum(shape) + 1).standard_normal(shape) \
+        .astype(np.float32)
+    got = _emulate_dct2(torch.from_numpy(x), inverse).numpy()
+    jx = jnp.asarray(x)
+    scale = float(np.abs(x).max())
+    _close(got, (jref.idct2_ref if inverse else jref.dct2_ref)(jx), scale,
+           "vs JAX dct_nd")
+    _close(got, jkernel.dct2(jx, inverse=inverse, interpret=True), scale,
+           "vs Pallas interpret")
