@@ -42,10 +42,15 @@ serve of each path runs under a CUPTI trace.  Two more paths follow:
     fused engine's samples bit for bit.
 
 ei_update and apply_factored are held against their plain versions and
-timed; CLD on the exact score of a four-mode 2-D mixture checks sampling
-quality with no trained weights; and the reduced configs on the card are
-checked against the plain versions on the CPU (engine samples, path A
-samples; gemma3-1b's logits and token streams).  It prints:
+timed; bdm_ei_update is checked at q 0-4 and at every cluster size at B =
+4 and n = 64, and its records carry the sweep over cluster sizes and its
+FMA floor beside the byte bound; the launch floor (PyTorch's fill of a
+one-element tensor, timed once) rides on the apply_factored and
+bdm_ei_update records; CLD on the exact score of a four-mode 2-D mixture
+checks sampling quality with no trained weights; and the reduced configs
+on the card are checked against the plain versions on the CPU (engine
+samples, path A samples; gemma3-1b's logits and token streams).  It
+prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -153,8 +158,9 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, kernel: str = ""):
     duration of that kernel's launches; without, the mean device time of
     everything one call launches (the multi-kernel plain versions).  Wall
     time is CUDA events around `iters` back-to-back calls.  Warm L2: the
-    serving path hands each kernel inputs it has just written.  Traces
-    without the device events asked for fail the run."""
+    serving path hands each kernel inputs it has just written.  Where no
+    trace holds the device events asked for, device time comes from CUDA
+    events instead (event_ms)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -170,9 +176,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, kernel: str = ""):
     # script; cause not known) deliver a trace without the kernel's events
     # or with only some of them: up to three traces are taken until one is
     # full (every call launches at least one kernel), every retry is
-    # logged, the fullest trace is kept, and the run fails if none holds
-    # the kernel.  A multi-kernel call's time is its traced events' sum
-    # over the calls, so a partial trace makes it a lower bound (logged).
+    # logged, the fullest trace is kept, and if none holds enough of the
+    # kernel's events the call is timed by CUDA events (logged).  A
+    # multi-kernel call's time is its traced events' sum over the calls,
+    # so a partial trace makes it a lower bound (logged).
     need = iters // 2 if kernel else iters
     durs = []
     for attempt in range(1, 4):
@@ -194,15 +201,46 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, kernel: str = ""):
         log(f"  trace of {iters} calls holds {len(traced)} device events"
             f"{' named ' + kernel if kernel else ''} (of {len(events)}: "
             f"{sorted({e.name[:60] for e in events})[:4]}); tracing again")
-    check(len(durs) >= (iters // 2 if kernel else 1),
-          f"{len(durs)} device events{' named ' + kernel if kernel else ''} "
-          f"traced for {iters} calls: no device time measured")
+    if len(durs) < (iters // 2 if kernel else 1):
+        ms = event_ms(fn, iters)
+        what = f" named {kernel}" if kernel else ""
+        log(f"  {len(durs)} device events{what} in the fullest of three "
+            f"traces of {iters} calls: {ms:.5f} ms a call by CUDA events "
+            f"instead (median of {iters}, each call queued behind a spin "
+            f"kernel)")
+        return ms, wall
     if kernel:
         return float(np.median(durs)), wall
     if len(durs) < iters:
         log(f"  kept a trace of {len(durs)} device events for {iters} "
             f"calls: the time per call below is a lower bound")
     return sum(durs) / iters, wall
+
+
+def event_ms(fn, iters: int) -> float:
+    """Median device time of one call by CUDA events around it, less the
+    median of an empty pair of events (their own cost, a few
+    microseconds), taken in turns with the calls.  Each pair is queued
+    behind a spin kernel (torch.cuda._sleep, ~0.5 ms) so that the host's
+    dispatch of the call falls inside the spin and only the card's work is
+    timed; on an H100 it reads ~1 us above a trace's kernel duration (the
+    launch itself).  The fallback of time_ms when CUPTI traces come back
+    without the events."""
+    pairs = {True: [], False: []}
+    for _ in range(iters):
+        for call in (True, False):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            if call:
+                fn()
+            end.record()
+            pairs[call].append((start, end))
+    torch.cuda.synchronize()
+    med = {k: float(np.median([a.elapsed_time(b) for a, b in v]))
+           for k, v in pairs.items()}
+    return max(0.0, med[True] - med[False])
 
 
 def kernel_label(mangled: str) -> str:
@@ -292,6 +330,93 @@ def fast_dct2_ops(H: int, W: int) -> int:
         m = max(1, (n - 1).bit_length())           # log2 n, rounded up
         return (n // 2) * m + (3 * n // 2) * m - n + 1
     return H * one(W) + W * one(H)
+
+
+def matrix_dct2_fmas(H: int, W: int) -> int:
+    """f32 multiply-adds of one 2-D DCT of an H x W tile as two dense
+    matrix products (H x H times H x W, then H x W times W x W), the form
+    the kernels compute: the FMA floor beside Lee's count."""
+    return H * W * (H + W)
+
+
+def bdm_floor_ms(tiles: int, q: int, H: int, W: int) -> float:
+    """bdm_ei_update's FMA floor: (q + 2) matrix-form 2-D transforms a
+    tile, 2 operations per multiply-add, at the f32 peak."""
+    return 2 * tiles * (q + 2) * matrix_dct2_fmas(H, W) / F32_FLOPS * 1e3
+
+
+def launch_floor_ms() -> float:
+    """A launch's floor on this card: the median traced duration of
+    PyTorch's fill of a one-element CUDA tensor (a yardstick, like
+    library_ms; the port never calls it)."""
+    one = torch.zeros(1, device="cuda")
+    return time_ms(lambda: one.fill_(1.0), kernel="FillFunctor")[0]
+
+
+def bdm_cluster_sweep(u, eps, psi, C):
+    """The bdm_ei_update kernel's median launch time at 1, 2, 4 and 8
+    blocks per (b, channel) tile on these inputs (bdm_q_check holds every
+    cluster size against the plain version).  The entry point is called
+    directly, outside the wrapper and its launch count."""
+    from repro_torch.kernels.dct2 import ops as dct_ops
+    out = torch.empty_like(u)
+    sweep = {}
+    for blocks in (1, 2, 4, 8):
+        def call():
+            dct_ops._launch_bdm(u, eps, psi, C, out, blocks)
+        sweep[blocks] = time_ms(call, kernel="bdm_ei_update_kernel")[0]
+    return sweep
+
+
+def bdm_q_check(shape, gen, dev) -> None:
+    """bdm_ei_update at `shape` for q 0-6 (q 5 and 6 take passes of up to 5
+    tiles): the wrapper (one launch) within 1e-6 of max|out| of the plain
+    version, and the kernel at every cluster size bitwise equal to it."""
+    from repro_torch.kernels.dct2 import ops as dct_ops
+    from repro_torch.kernels.dct2 import ref as dct_ref
+    from repro_torch.kernels import cuda as kc
+    B, H, W, Ch = shape
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    worst = 0.0
+    for q in range(7):
+        u, eps, C = rnd(*shape), rnd(q, *shape), rnd(q, H, W, 1)
+        psi = torch.rand(H, W, 1, generator=gen, device=dev)
+        n0 = kc.launches().get("bdm_ei_update", 0)
+        got = dct_ops.bdm_ei_update(u, eps, psi, C)
+        want = dct_ref.bdm_ei_update_ref(u, eps, psi, C)
+        out = torch.empty_like(u)
+        same = True
+        for blocks in (1, 2, 4, 8):
+            dct_ops._launch_bdm(u, eps, psi, C, out, blocks)
+            torch.cuda.synchronize()
+            same = same and torch.equal(out, got)
+        rel = max_err(got, want) / float(want.abs().max())
+        worst = max(worst, rel)
+        check(kc.launches()["bdm_ei_update"] == n0 + 1 and rel <= 1e-6
+              and same, f"bdm_ei_update at {shape}, q {q}: one launch, "
+              f"within 1e-6 of max|out| ({rel:.3e}), every cluster size "
+              f"bitwise ({same})")
+    log(f"bdm_ei_update at {shape}, q 0-6: max abs err / max|out| "
+        f"{worst:.3e} (tol 1e-6), one launch a call, bitwise at 1, 2, 4 "
+        f"and 8 blocks per tile")
+
+
+def bdm_record(rec, u, eps, psi, C, floor):
+    """Add the launch floor and the cluster sweep to a bdm_ei_update
+    record, and log them beside the FMA floor."""
+    from repro_torch.kernels.dct2 import ops as dct_ops
+    B, H, W, Ch = u.shape
+    q = eps.shape[0]
+    sweep = bdm_cluster_sweep(u, eps, psi, C)
+    fma = bdm_floor_ms(B * Ch, q, H, W)
+    log(f"  bdm_ei_update at ({B}, {H}, {W}, {Ch}), q {q}, by blocks per "
+        f"tile (median launch, ms; the wrapper takes "
+        f"{dct_ops.cluster_blocks(B * Ch, H, dct_ops.sm_count(u.device))}): "
+        f"{sweep}; FMA floor "
+        f"{fma:.6f} ms (matrix form at {F32_FLOPS / 1e12:.0f} TFLOP/s), "
+        f"byte bound {rec['bound_ms']:.6f} ms, launch floor {floor:.5f} ms")
+    rec.update(cluster_sweep_ms=sweep, launch_floor_ms=floor)
+    return rec
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -618,7 +743,7 @@ def attention_record(path, spec, net, counts, gen, dev):
                            counts.get("flash_attention", 0), err_att)
 
 
-def dct_records(counts, gen, dev):
+def dct_records(counts, gen, dev, floor):
     """dct2 (both directions) and bdm_ei_update against their plain
     versions at the BDM path's shape (4, 32, 32, 3) f32, and timed.  The
     library yardstick for dct2 is one einsum over both axes (TF32 off)."""
@@ -639,6 +764,7 @@ def dct_records(counts, gen, dev):
         f" two 32-term f32 sums per element, in another order than cuBLAS)")
     check(max(errs) <= 1e-6 * scale, "dct2 beyond tolerance")
 
+    bdm_q_check((BATCH, H, W, Ch), gen, dev)
     q = 2
     u, eps = rnd(BATCH, H, W, Ch), rnd(q, BATCH, H, W, Ch)
     psi = torch.rand(H, W, 1, generator=gen, device=dev)
@@ -668,14 +794,14 @@ def dct_records(counts, gen, dev):
             lambda: dct_ref.dct2_ref(x), 2 * img,
             BATCH * Ch * tile_ops, F32_FLOPS,
             library_fn=lambda: torch.einsum("hi,bijc,wj->bhwc", ch, x, cw)),
-        timed_record(
+        bdm_record(timed_record(
             "bdm_ei_update", None, src, "src/repro/kernels/dct2/kernel.py:53",
             0, err_bdm, lambda: dct_ops.bdm_ei_update(u, eps, psi, C),
             "bdm_ei_update_kernel",
             lambda: dct_ref.bdm_ei_update_ref(u, eps, psi, C),
             (q + 2) * img + 4 * (psi.numel() + C.numel()),
             BATCH * Ch * ((q + 2) * tile_ops + (2 * q + 1) * H * W),
-            F32_FLOPS)]
+            F32_FLOPS), u, eps, psi, C, floor)]
 
 
 def noise_check(keys64, keys, kcs, algs, n):
@@ -860,14 +986,16 @@ def drive_path_b(name: str, path, mix, card: str):
     return counts
 
 
-def ei_records(path_a, b_counts, gen, dev):
+def ei_records(path_a, b_counts, gen, dev, floor):
     """ei_update at path A's shapes (n = A_N, k 1 and 2, q 1-3, f32 and
     bf16) and apply_factored at path B's (B = BATCH, k 1 and 2) against
     their plain versions (bitwise: the same unfused products and
     left-to-right sums), then timed beside their bounds and a library
     call: one einsum over the pre-stacked [u; eps] and [psi; C] for
-    ei_update, `torch.bmm(blk, z) * diag` (two calls) for apply_factored.
-    bdm_ei_update is timed again at path A's shape."""
+    ei_update, `torch.bmm(blk, z) * diag` (two calls) for apply_factored,
+    whose records also carry the launch floor (`floor`, ms).
+    bdm_ei_update is timed again at path A's shape, with its cluster
+    sweep and floors."""
     from repro_torch.kernels.dct2 import ops as dct_ops
     from repro_torch.kernels.dct2 import ref as dct_ref
     from repro_torch.kernels.ei_update import ops as ei_ops
@@ -938,10 +1066,13 @@ def ei_records(path_a, b_counts, gen, dev):
             4 * (2 * z.numel() + diag.numel() + blk.numel()),
             BATCH * D * (2 * k * k + k * (k - 1)), F32_FLOPS,
             library_fn=lambda: torch.bmm(blk, z) * diag[:, None]))
-        records[-1]["library_calls"] = 2
+        records[-1].update(library_calls=2, launch_floor_ms=floor)
+        log(f"  apply_factored[k={k}] at {records[-1]['ms'] / floor:.3f}x "
+            f"the launch floor ({floor:.5f} ms; aim: within 1.15x)")
 
     # bdm_ei_update at path A's shape: (A_N, 32, 32, 3), q = 2
     H, W, Ch = DATA
+    bdm_q_check((A_N, H, W, Ch), gen, dev)
     u, eps = rnd(A_N, H, W, Ch), rnd(q, A_N, H, W, Ch)
     psi, C = torch.rand(H, W, 1, generator=gen, device=dev), rnd(q, H, W, 1)
     got = dct_ops.bdm_ei_update(u, eps, psi, C)
@@ -954,7 +1085,7 @@ def ei_records(path_a, b_counts, gen, dev):
     check(err <= 1e-6 * oscale, "bdm_ei_update beyond tolerance at path A's "
           "shape")
     a_runs = path_a["cifar10-bdm"][2]
-    records.append(timed_record(
+    records.append(bdm_record(timed_record(
         f"bdm_ei_update[n={A_N}]", "cifar10-bdm (path A)",
         "src/repro_torch/csrc/dct2.cu", "src/repro/kernels/dct2/kernel.py:53",
         sum(r["counts"].get("bdm_ei_update", 0) for r in a_runs), err,
@@ -962,7 +1093,7 @@ def ei_records(path_a, b_counts, gen, dev):
         lambda: dct_ref.bdm_ei_update_ref(u, eps, psi, C),
         4 * ((q + 2) * u.numel() + psi.numel() + C.numel()),
         A_N * Ch * ((q + 2) * fast_dct2_ops(H, W) + (2 * q + 1) * H * W),
-        F32_FLOPS))
+        F32_FLOPS), u, eps, psi, C, floor))
     records[-1]["launches_per_run"] = [
         r["counts"].get("bdm_ei_update", 0) for r in a_runs]
     return records
@@ -1411,7 +1542,10 @@ def main() -> int:
                                  streamed=name == "cifar10-bdm")
         records.append(attention_record(name, spec, net, counts, gen, dev))
     bdm_counts = paths["cifar10-bdm"][3]
-    records += dct_records(bdm_counts, gen, dev)
+    floor = launch_floor_ms()
+    log(f"launch floor: PyTorch's fill of a one-element tensor, median "
+        f"traced launch {floor:.5f} ms ({card})")
+    records += dct_records(bdm_counts, gen, dev, floor)
     from repro_torch.kernels.round_fused import ops as rf
     from repro_torch.kernels.round_fused import ref as rf_ref
     n = 3072
@@ -1448,7 +1582,7 @@ def main() -> int:
             for _, _, runs in path_a.values() for r in runs), att[3]))
     b_counts = {name: drive_path_b(name, paths[name], mix, card)
                 for name in PATH_B_KERNELS}
-    records += ei_records(path_a, b_counts, gen, dev)
+    records += ei_records(path_a, b_counts, gen, dev, floor)
     for rec in records:
         if rec["name"] == "bdm_ei_update":
             rec.update(path="cifar10-bdm (path A; timed at B = 4)",

@@ -37,89 +37,77 @@
 // a3)), so no output waits on one 32-long chain.  No block waits on
 // another.
 //
-// bdm_ei_update.  One block per (b, channel) tile, 256 threads; both DCT
-// matrices (rows padded to n + 1 floats so that a warp walking a column
-// hits distinct banks) and the tile live in shared memory, and each
-// product runs one output element per thread in the plain version's order
-// (the H axis first, then W).
+// bdm_ei_update.  What bounds it: at the lockstep sampler's shape (n = 64,
+// 32 x 32 x 3, q = 2) the bytes take ~0.9 us and the (q + 2) two-dimensional
+// transforms done as matrix products, 2 x 32^3 f32 multiply-adds each, ~100
+// MFLOP, ~1.5 us at 67 TFLOP/s; at B = 4 both are a few hundredths of a
+// microsecond.  What sets its time on the card is latency: a launch (~1 us
+// for an empty one), one round trip for the loads, and a chain of
+// dependent steps (four products, two block barriers, one exchange
+// between blocks), with too few warps on an SM to hide any of it.  The
+// design shortens each link:
+//   * a thread-block cluster of R blocks per (b, channel) tile, block r on
+//     a band of output rows (R from the tile count alone: 8 at the engine's
+//     12 tiles, 1 at path A's 192), so a small batch still spreads over
+//     the card;
+//   * every load in flight before one wait.  With R >= 4 (short bands) and
+//     q + 1 <= 5 one thread of each block issues bulk (TMA) copies: its
+//     band of rows of each whole channels-last tile (all channels) and of
+//     C_w^T and C_w, multicast to every block of the cluster, so each byte
+//     crosses to the cluster once, not R times, and its own rows of C_h,
+//     C_h^T and the coefficients, all counted on one mbarrier.  Otherwise
+//     every thread
+//     issues cp.async copies of this channel's elements (4 bytes a copy,
+//     stride Ch) and of the matrices' and coefficients' rows (16 bytes);
+//   * the forward H-axis products of u and every eps_j as ONE product over
+//     the panel [X_0 | X_1 | ... | X_q]: T = C_h[band] [X_0 | ... | X_q];
+//   * the forward W-axis step applies psi / C_j and sums over j in
+//     registers, Y[band] = psi * T_0 C_w^T + sum_j C_j * T_j C_w^T (left to
+//     right, unfused multiply then add), so no DCT(eps_j) is stored;
+//   * register blocking: each thread computes a patch of outputs (4 x 4 to
+//     1 x 1, chosen per product, see with_patch; the H-axis step on whole
+//     tiles takes 4 x 1), its left operand read as float4 along the sum,
+//     so one shared-memory load feeds up to 16 multiply-adds, and each sum
+//     fully unrolled, so the loads run ahead of the multiply-adds;
+//   * the inverse: block r computes Z[band] = Y[band] C_w and pushes it
+//     into every block of the cluster as asynchronous stores counted on
+//     that block's mbarrier, then waits on its own mbarrier for all of Z
+//     (no cluster-wide barrier) and computes out[band] = C_h^T[band, :] Z,
+//     written straight to the channels-last output;
+//   * the 32 x 32 x 3 frame has a kernel per R with every size a constant
+//     (no runtime division, the patch shapes fixed at compile time); other
+//     shapes take one general kernel.
+// Every output of every product is ONE f32 fused multiply-add chain over
+// the sum index in order (the patch gives the thread independent chains),
+// so the band split, R and the pass split change no bit of the result.
+// q + 1 <= 5 tiles run in one pass; more run in passes of up to 5 tiles,
+// fewer where shared memory is short (H or W near 64), the running sum Y
+// kept in shared memory between passes (cp.async loads only: the bulk
+// kernels take one pass, and the host sends a larger q to the general
+// kernel).
 //
 // Both stay in f32 fused multiply-adds on the CUDA cores: TF32 keeps about
 // three decimal digits, and that error would land in every canonicalize
 // of the serving state.  H and W may be any size up to 64 (the 8 x 8
 // reduced config and the 32 x 32 CIFAR frame are the ones served); above
 // 48 KB the shared memory is requested as dynamic shared memory.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;     // bdm_ei_update
 constexpr int kMaxN = 64;
 constexpr int kBands = 8;         // dct2: blocks per tile
 constexpr int kBandThreads = 128;
-
-struct Smem {
-  float* ch;    // C_h, rows padded to H + 1
-  float* cw;    // C_w, rows padded to W + 1
-  float* x;     // the tile being transformed, (H, W) row-major
-  float* t;     // after the H-axis product
-  float* y;     // bdm_ei_update's frequency-space sum
-};
-
-__device__ __forceinline__ Smem carve(float* sm, int H, int W) {
-  Smem s;
-  s.ch = sm;
-  s.cw = s.ch + H * (H + 1);
-  s.x = s.cw + W * (W + 1);
-  s.t = s.x + H * W;
-  s.y = s.t + H * W;
-  return s;
-}
-
-__device__ __forceinline__ void load_mats(const float* ch, const float* cw,
-                                          Smem s, int H, int W) {
-  for (int e = threadIdx.x; e < H * H; e += blockDim.x)
-    s.ch[(e / H) * (H + 1) + e % H] = ch[e];
-  for (int e = threadIdx.x; e < W * W; e += blockDim.x)
-    s.cw[(e / W) * (W + 1) + e % W] = cw[e];
-}
-
-// tile (b, c) of a channels-last (., H, W, Ch) array -> dst (H, W)
-__device__ __forceinline__ void load_tile(const float* src, float* dst,
-                                          int HW, int Ch) {
-  for (int e = threadIdx.x; e < HW; e += blockDim.x)
-    dst[e] = src[(size_t)e * Ch];
-}
-
-// t[h][j] = sum_i A[h][i] x[i][j]; A = C_h (forward) or C_h^T (inverse)
-__device__ __forceinline__ void along_h(const float* ch, const float* x,
-                                        float* t, int H, int W,
-                                        bool inverse) {
-  for (int e = threadIdx.x; e < H * W; e += blockDim.x) {
-    const int h = e / W, j = e - h * W;
-    float acc = 0.0f;
-    for (int i = 0; i < H; ++i) {
-      const float a = inverse ? ch[i * (H + 1) + h] : ch[h * (H + 1) + i];
-      acc = fmaf(a, x[i * W + j], acc);
-    }
-    t[e] = acc;
-  }
-}
-
-// element e = (h, w) of sum_j t[h][j] B[w][j]; B = C_w (forward) or
-// C_w^T (inverse)
-__device__ __forceinline__ float along_w(const float* cw, const float* t,
-                                         int e, int W, bool inverse) {
-  const int h = e / W, w = e - h * W;
-  float acc = 0.0f;
-  for (int j = 0; j < W; ++j) {
-    const float b = inverse ? cw[j * (W + 1) + w] : cw[w * (W + 1) + j];
-    acc = fmaf(t[h * W + j], b, acc);
-  }
-  return acc;
-}
+constexpr int kBdmThreads = 128;  // bdm_ei_update
+constexpr int kMaxPass = 5;       // bdm_ei_update: tiles per pass
+constexpr int kMaxCluster = 8;    // bdm_ei_update: blocks per tile
+constexpr size_t kMaxSmem = 232448 - 1024;   // 227 KB a block, less static
 
 // 4 bytes global -> shared, asynchronous
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
@@ -199,43 +187,526 @@ dct2_kernel(const float* x, float* y, const float* a, const float* bt,
            [&](int e, float t) { yb[(size_t)e * Ch] = t; });
 }
 
-__global__ void __launch_bounds__(kThreads)
-bdm_ei_update_kernel(const float* u, const float* eps, const float* psi,
-                     const float* C, float* out, const float* ch,
-                     const float* cw, int B, int H, int W, int Ch, int q) {
-  extern __shared__ float sm[];
-  const Smem s = carve(sm, H, W);
-  const int HW = H * W;
-  const int b = blockIdx.x / Ch, c = blockIdx.x - b * Ch;
-  const size_t off = (size_t)b * HW * Ch + c;
-  load_mats(ch, cw, s, H, W);
-  load_tile(u + off, s.x, HW, Ch);
-  __syncthreads();
-  along_h(s.ch, s.x, s.t, H, W, false);
-  __syncthreads();
-  for (int e = threadIdx.x; e < HW; e += blockDim.x)
-    s.y[e] = __fmul_rn(along_w(s.cw, s.t, e, W, false), psi[e]);
-  for (int j = 0; j < q; ++j) {
-    // the sync after this load also orders the previous along_w's reads
-    // of t before along_h overwrites it
-    load_tile(eps + (size_t)j * B * HW * Ch + off, s.x, HW, Ch);
-    __syncthreads();
-    along_h(s.ch, s.x, s.t, H, W, false);
-    __syncthreads();
-    for (int e = threadIdx.x; e < HW; e += blockDim.x)
-      s.y[e] = __fadd_rn(s.y[e], __fmul_rn(along_w(s.cw, s.t, e, W, false),
-                                           C[(size_t)j * HW + e]));
-  }
-  __syncthreads();
-  along_h(s.ch, s.y, s.t, H, W, true);
-  __syncthreads();
-  for (int e = threadIdx.x; e < HW; e += blockDim.x)
-    out[off + (size_t)e * Ch] = along_w(s.cw, s.t, e, W, true);
+// ---- bdm_ei_update ---------------------------------------------------------
+
+// a left operand's leading dimension: n rounded up to 4 floats, plus 4
+// when that is an even number of 16-byte words, so the rows one warp
+// spans (up to 4, or rows r and r + 4) start in different banks
+__host__ __device__ __forceinline__ int lead(int n) {
+  const int n4 = round4(n);
+  return ((n4 >> 2) & 1) ? n4 : n4 + 4;
 }
 
-size_t smem_bytes(int H, int W, int tiles) {
-  return sizeof(float) * ((size_t)H * (H + 1) + (size_t)W * (W + 1)
-                          + (size_t)tiles * H * W);
+// offsets (floats, each a multiple of 4) of a block's shared buffers for
+// bands of up to MP rows (a multiple of 4) and passes of nt tiles of xt
+// floats each (a multiple of 4); bulk: the band's matrix rows unpadded
+struct BdmLayout {
+  int ldh, ldt, ldy;              // the left operands' leading dims
+  int af, ai, btf, bi, x, t, co, y, z, total;
+};
+
+__host__ __device__ __forceinline__ BdmLayout bdm_layout(int H, int W, int MP,
+                                                         int nt, int xt,
+                                                         bool bulk) {
+  BdmLayout l;
+  const int W4 = round4(W);
+  l.ldh = bulk ? H : lead(H);   // bulk copies land the rows unpadded
+  l.ldt = lead(nt * W4);
+  l.ldy = lead(W);
+  l.af = 0;                             // (MP, ldh): C_h[band]
+  l.ai = l.af + MP * l.ldh;             // (MP, ldh): C_h^T[band]
+  l.btf = l.ai + MP * l.ldh;            // (W, W4): C_w^T
+  l.bi = l.btf + W * W4;                // (W, W4): C_w
+  l.x = l.bi + W * W4;                  // (nt, xt): the pass's tiles
+  l.t = l.x + nt * xt;                  // (MP, ldt): C_h[band] [X_j ...]
+  l.co = l.t + MP * l.ldt;              // (nt, MP, W4): psi / C_j rows
+  l.y = l.co + nt * MP * W4;            // (MP, ldy): the frequency sum
+  l.z = l.y + MP * l.ldy;               // (H, W4): Y C_w, every band
+  l.total = l.z + H * W4;
+  return l;
+}
+
+// dst[r * ldd + c] = src[r * cols + c] for r < rows, c < cols, global to
+// shared memory, without waiting: 16 bytes a copy when cols is a multiple
+// of 4 and src 16-byte aligned (ldd always is), else 4
+__device__ __forceinline__ void copy_rows(float* dst, int ldd,
+                                          const float* src, int rows,
+                                          int cols) {
+  if ((cols & 3) == 0 && (((uintptr_t)src) & 15) == 0) {
+    const int c4 = cols >> 2;
+    for (int e = threadIdx.x; e < rows * c4; e += kBdmThreads) {
+      const int r = e / c4;
+      cp_async_16(dst + r * ldd + 4 * (e - r * c4), src + 4 * e, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kBdmThreads) {
+      const int r = e / cols;
+      cp_async_4(dst + r * ldd + e - r * cols, src + e);
+    }
+  }
+}
+
+// dst[i * ldd + w] = src[(i W + w) Ch]: one channel of a channels-last
+// (H, W, Ch) tile, 4 bytes a copy, without waiting
+__device__ __forceinline__ void copy_tile(float* dst, int ldd,
+                                          const float* src, int Ch, int H,
+                                          int W) {
+  for (int e = threadIdx.x; e < H * W; e += kBdmThreads) {
+    const int i = e / W;
+    cp_async_4(dst + i * ldd + e - i * W, src + (size_t)e * Ch);
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// PC floats of a row, xs apart (xs = 1 when PC = 4: one float4)
+template <int PC>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[PC],
+                                         int xs = 1) {
+  if constexpr (PC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) v[cc] = p[cc * xs];
+  }
+}
+
+template <int PC>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[PC]) {
+  if constexpr (PC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) p[cc] = v[cc];
+  }
+}
+
+// acc[rr][cc] = sum_{i < K} a[rr * lda + i] m[i * ldm + cc xs], each output
+// one fused multiply-add chain in i order; a is read as float4 along i
+// (lda a multiple of 4), m as PC floats along the row
+template <int PR, int PC>
+__device__ __forceinline__ void patch_dot(const float* a, int lda,
+                                          const float* m, int ldm, int K,
+                                          float (&acc)[PR][PC], int xs = 1) {
+#pragma unroll
+  for (int rr = 0; rr < PR; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) acc[rr][cc] = 0.0f;
+  int i = 0;
+#pragma unroll 8
+  for (; i + 4 <= K; i += 4) {
+    float4 av[PR];
+#pragma unroll
+    for (int rr = 0; rr < PR; ++rr)
+      av[rr] = *reinterpret_cast<const float4*>(a + rr * lda + i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float mv[PC];
+      load_row<PC>(m + (i + k) * ldm, mv, xs);
+#pragma unroll
+      for (int rr = 0; rr < PR; ++rr)
+#pragma unroll
+        for (int cc = 0; cc < PC; ++cc)
+          acc[rr][cc] = fmaf(lane4(av[rr], k), mv[cc], acc[rr][cc]);
+    }
+  }
+  for (; i < K; ++i) {
+    float mv[PC];
+    load_row<PC>(m + i * ldm, mv, xs);
+#pragma unroll
+    for (int rr = 0; rr < PR; ++rr)
+#pragma unroll
+      for (int cc = 0; cc < PC; ++cc)
+        acc[rr][cc] = fmaf(a[rr * lda + i], mv[cc], acc[rr][cc]);
+  }
+}
+
+template <int PR_, int PC_>
+struct Patch {
+  static constexpr int PR = PR_, PC = PC_;
+};
+
+// f(Patch<PR, PC>) for an M x N product (N a multiple of 4), uniform across
+// the block and decided at compile time when M and N are constants.
+// Wide (few, tall bands: many blocks share an SM, shared-memory bandwidth
+// is the limit): the largest of 4 x 4, 2 x 4 and 1 x 4 that gives every
+// thread a patch, else 1 x 1.  Narrow (many short bands: one block an SM,
+// latency is the limit): the least patches per thread x max(4, PR PC) (a
+// thread's patches run one after another; fewer than 4 chains side by
+// side leave the multiply-add latency exposed), the smaller on a tie.
+template <bool kWide, typename F>
+__device__ __forceinline__ void with_patch(int M, int N, F f) {
+  auto np = [&](int pr, int pc) { return ((M + pr - 1) / pr) * (N / pc); };
+  if (kWide) {
+    if (np(4, 4) >= kBdmThreads) f(Patch<4, 4>{});
+    else if (np(2, 4) >= kBdmThreads) f(Patch<2, 4>{});
+    else if (np(1, 4) >= kBdmThreads) f(Patch<1, 4>{});
+    else f(Patch<1, 1>{});
+    return;
+  }
+  auto cost = [&](int pr, int pc) {
+    return ((np(pr, pc) + kBdmThreads - 1) / kBdmThreads) * max(4, pr * pc);
+  };
+  const int c44 = cost(4, 4), c24 = cost(2, 4), c14 = cost(1, 4),
+            c11 = cost(1, 1);
+  if (c11 <= c14 && c11 <= c24 && c11 <= c44) f(Patch<1, 1>{});
+  else if (c14 <= c24 && c14 <= c44) f(Patch<1, 4>{});
+  else if (c24 <= c44) f(Patch<2, 4>{});
+  else f(Patch<4, 4>{});
+}
+
+// out[r][c] = sum_{i < K} a[r][i] m[i][c] for r < M, c < N in PR x PC
+// patches, patch p = (row group, column group) row-major, thread t taking p
+// = t, t + kBdmThreads, ...; f(r0, c0, acc) receives each patch (rows of a
+// up to M rounded up to PR must be readable)
+template <int PR, int PC, typename F>
+__device__ __forceinline__ void product(const float* a, int lda,
+                                        const float* m, int ldm, int M, int K,
+                                        int N, F f) {
+  const int ncg = N / PC, np = ((M + PR - 1) / PR) * ncg;
+  for (int p = threadIdx.x; p < np; p += kBdmThreads) {
+    const int r0 = (p / ncg) * PR, c0 = (p % ncg) * PC;
+    float acc[PR][PC];
+    patch_dot<PR, PC>(a + r0 * lda, lda, m + c0, ldm, K, acc);
+    f(r0, c0, acc);
+  }
+}
+
+// the forward H-axis step of one pass, one product over the panel of its
+// n tiles: t[r][j W4 + w] = sum_i C_h[band][r][i] X_j[i][w], X_j[i][w] at
+// x[j xt + i ldx + w xs] (xs = Ch for a whole channels-last tile, 1 for
+// one channel's); PR x PC patches p = (tile, row group, column group), the
+// column group fastest, so a warp's reads of X are consecutive (PC = 4
+// takes xs = 1 and reads float4) or Ch apart (no bank conflicts for an odd
+// Ch), and its reads of C_h[band] broadcasts
+template <int PR, int PC>
+__device__ __forceinline__ void forward_h(const float* af, int ldh,
+                                          const float* x, int xt, int ldx,
+                                          int xs, int H, int W, float* t,
+                                          int ldt, int M, int n) {
+  const int W4 = round4(W), ncg = (PC == 1 ? W : W4) / PC;
+  const int nrg = (M + PR - 1) / PR;
+  for (int p = threadIdx.x; p < n * nrg * ncg; p += kBdmThreads) {
+    const int s = p / ncg, j = s / nrg;
+    const int r0 = (s - j * nrg) * PR, c0 = (p - s * ncg) * PC;
+    float acc[PR][PC];
+    patch_dot<PR, PC>(af + r0 * ldh, ldh, x + j * xt + c0 * xs, ldx, H, acc,
+                      xs);
+#pragma unroll
+    for (int rr = 0; rr < PR; ++rr)
+      store_row<PC>(t + (r0 + rr) * ldt + j * W4 + c0, acc[rr]);
+  }
+}
+
+// the forward W-axis step of one pass: y[r][c] (+)= sum_j coef_j[r][c] *
+// (T_j[band] C_w^T)[r][c] over the pass's n tiles, each term one multiply
+// and one add, left to right from y (the first tile of the first pass
+// starts the sum)
+template <int PR, int PC>
+__device__ __forceinline__ void forward_w(const float* t, int ldt,
+                                          const float* btf, const float* co,
+                                          float* y, int ldy, int M, int W,
+                                          int MP, int n, bool first) {
+  const int W4 = round4(W), ncg = W4 / PC;
+  const int np = ((M + PR - 1) / PR) * ncg;
+  for (int p = threadIdx.x; p < np; p += kBdmThreads) {
+    const int r0 = (p / ncg) * PR, c0 = (p % ncg) * PC;
+    float yv[PR][PC] = {};
+    if (!first)
+#pragma unroll
+      for (int rr = 0; rr < PR; ++rr)
+        load_row<PC>(y + (r0 + rr) * ldy + c0, yv[rr]);
+    for (int j = 0; j < n; ++j) {
+      float acc[PR][PC];
+      patch_dot<PR, PC>(t + r0 * ldt + j * W4, ldt, btf + c0, W4, W, acc);
+      const float* cf = co + (j * MP + r0) * W4 + c0;
+#pragma unroll
+      for (int rr = 0; rr < PR; ++rr) {
+        float cv[PC];
+        load_row<PC>(cf + rr * W4, cv);
+#pragma unroll
+        for (int cc = 0; cc < PC; ++cc) {
+          const float v = __fmul_rn(acc[rr][cc], cv[cc]);
+          yv[rr][cc] = first && j == 0 ? v : __fadd_rn(yv[rr][cc], v);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < PR; ++rr)
+      store_row<PC>(y + (r0 + rr) * ldy + c0, yv[rr]);
+  }
+}
+
+// ---- bulk (TMA) copies completing on an mbarrier --------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive on bar, expecting `bytes` more of bulk copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) global -> this
+// block's shared memory, counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the same bytes into every block of the cluster in `mask`, at this
+// block's shared-memory offsets, each counted on that block's bar
+__device__ __forceinline__ void bulk_copy_mc(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar,
+                                             uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
+         "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// p (this block's shared memory) in block `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// v to dst in a block of the cluster, counted on that block's bar (both
+// shared::cluster addresses from mapa); no wait
+template <int PC>
+__device__ __forceinline__ void push_row(uint32_t dst, const float (&v)[PC],
+                                         uint32_t bar) {
+  if constexpr (PC == 4) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+        "[%0], {%1, %2, %3, %4}, [%5];\n"
+        :: "r"(dst), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+        : "memory");
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc)
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
+          "[%0], %1, [%2];\n"
+          :: "r"(dst + 4 * cc), "f"(v[cc]), "r"(bar) : "memory");
+  }
+}
+
+// grid (R * B * Ch), cluster (R, 1, 1), kBdmThreads threads: the cluster
+// blockIdx.x / R works on tile (b, c) = divmod(blockIdx.x / R, Ch), its
+// block of rank r on output rows [r BR, r BR + BR), BR = ceil(H / R); nt
+// tiles a pass (the host's choice: what shared memory holds, at most
+// kMaxPass).  HT, WT, CT, RT > 0 fix H, W, Ch and R at compile time (the
+// served 32 x 32 x 3 frame), so every size, offset and divisor is a
+// constant; 0 takes them from the arguments and the cluster.  Loads: with
+// RT >= 4 (short bands, the small batches; one pass, nt = q + 1) one
+// thread of each block issues bulk copies of its band's rows of every
+// whole channels-last tile (all channels) and of C_w^T and C_w, multicast
+// to every block of the cluster, and of its own rows of C_h, C_h^T and the
+// coefficients, all completing on one mbarrier (each byte crosses to the
+// cluster once, not R times); otherwise every thread copies its share of
+// this channel's elements with cp.async, 4 bytes a copy.
+template <int HT, int WT, int CT, int RT>
+__global__ void __launch_bounds__(kBdmThreads)
+bdm_ei_update_kernel(const float* __restrict__ u,
+                     const float* __restrict__ eps,
+                     const float* __restrict__ psi,
+                     const float* __restrict__ C, float* __restrict__ out,
+                     const float* __restrict__ ch,
+                     const float* __restrict__ cht,
+                     const float* __restrict__ cw,
+                     const float* __restrict__ cwt, int B, int Hr, int Wr,
+                     int Chr, int q, int nt) {
+  constexpr bool kBulk = HT > 0 && RT >= 4, kWide = !kBulk;
+  extern __shared__ __align__(16) float sm[];
+  // bar: the bulk copies; zbar: the bands of Z the cluster pushes here
+  __shared__ __align__(8) uint64_t bar, zbar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int H = HT > 0 ? HT : Hr, W = WT > 0 ? WT : Wr;
+  const int Ch = CT > 0 ? CT : Chr;
+  const int R = RT > 0 ? RT : (int)cluster.num_blocks();
+  const int rank = RT > 0 ? (int)(blockIdx.x % RT) : (int)cluster.block_rank();
+  const int BR = (H + R - 1) / R, MP = round4(BR);
+  const int h0 = rank * BR, rows = max(0, min(BR, H - h0));
+  const int tile = blockIdx.x / R;
+  const int b = tile / Ch, c = tile - b * Ch;
+  const int HW = H * W, W4 = round4(W);
+  const size_t off = (size_t)b * HW * Ch + c, step = (size_t)B * HW * Ch;
+  // one tile in shared memory: the whole channels-last tile (bulk), or
+  // this channel's, rows padded to W4
+  const int xt = kBulk ? HW * Ch : H * W4;
+  const BdmLayout L = bdm_layout(H, W, MP, nt, xt, kBulk);
+  float* af = sm + L.af;
+  float* ai = sm + L.ai;
+  float* btf = sm + L.btf;
+  float* bi = sm + L.bi;
+  float* x = sm + L.x;
+  float* t = sm + L.t;
+  float* co = sm + L.co;
+  float* y = sm + L.y;
+  float* z = sm + L.z;
+
+  // bulk: what lands here in the one pass: all of each of the q + 1 tiles
+  // and of C_w^T and C_w, R bands from R blocks; this band's rows of the
+  // coefficients and of C_h, C_h^T.  R divides H here.
+  const uint32_t bh = 4u * rows * H, band = 4u * rows * W;
+  const uint32_t mat = 4u * W * W, tile_bytes = 4u * HW * Ch;
+  if (threadIdx.x == 0) {
+    if (kBulk) {
+      mbar_init(&bar, 1);
+      // this block's own copies go out before the cluster barrier
+      mbar_expect_tx(&bar, (q + 1) * (tile_bytes + band) + 2 * mat + 2 * bh);
+      bulk_copy(af, ch + (size_t)h0 * H, bh, &bar);
+      bulk_copy(ai, cht + (size_t)h0 * H, bh, &bar);
+      for (int j = 0; j <= q; ++j)          // this band's coefficient rows
+        bulk_copy(co + j * MP * W4,
+                  (j == 0 ? psi : C + (size_t)(j - 1) * HW) + (size_t)h0 * W,
+                  band, &bar);
+    }
+    if (RT != 1) mbar_init(&zbar, 1);
+  }
+  if (kBulk) {
+    // every block's barriers are ready before any multicast lands
+    cluster.sync();
+  } else if (RT != 1) {
+    // this block's barrier is ready, so its peers may push into it once
+    // they have waited on this phase (just before their pushes)
+    cluster_arrive();
+  }
+  if (!kBulk) {
+    copy_rows(af, L.ldh, ch + (size_t)h0 * H, rows, H);
+    copy_rows(ai, L.ldh, cht + (size_t)h0 * H, rows, H);
+    copy_rows(btf, W4, cwt, W, W);
+    copy_rows(bi, W4, cw, W, W);
+  }
+  for (int j0 = 0; j0 <= q; j0 += nt) {
+    const int n = min(nt, q + 1 - j0);
+    if (kBulk) {
+      // one pass: n = nt = q + 1
+      if (threadIdx.x == 0) {
+        const uint16_t all = (uint16_t)((1u << R) - 1);
+        bulk_copy_mc(btf + h0 * W4, cwt + (size_t)h0 * W, band, &bar, all);
+        bulk_copy_mc(bi + h0 * W4, cw + (size_t)h0 * W, band, &bar, all);
+        for (int j = 0; j < n; ++j) {
+          const float* img = (j == 0 ? u : eps + (j - 1) * step) +
+                             (size_t)b * HW * Ch;
+          bulk_copy_mc(x + j * xt + h0 * W * Ch, img + (size_t)h0 * W * Ch,
+                       band * Ch, &bar, all);
+        }
+      }
+      mbar_wait(&bar, 0);
+    } else {
+      if (j0 > 0) __syncthreads();        // the last pass is done with x, co
+      for (int j = 0; j < n; ++j) {
+        const int jj = j0 + j;
+        copy_tile(x + j * xt, W4,
+                  jj == 0 ? u + off : eps + (jj - 1) * step + off, Ch, H, W);
+        copy_rows(co + j * MP * W4, W4,
+                  (jj == 0 ? psi : C + (size_t)(jj - 1) * HW) +
+                      (size_t)h0 * W,
+                  rows, W);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    // T = C_h[band] [X_j0 | ... | X_j0+n-1], one product over the panel;
+    // whole tiles are read a channel at a time (4 x 1 patches), one
+    // channel's tiles in the wide patches (sized, in the fixed-shape
+    // kernels, for a pass of 3 tiles: the q = 2 predictor's)
+    if (kBulk)
+      forward_h<4, 1>(af, L.ldh, x + c, xt, W * Ch, Ch, H, W, t, L.ldt, rows,
+                      n);
+    else
+      with_patch<true>(rows, (HT > 0 ? 3 : n) * W4, [&](auto P) {
+        forward_h<decltype(P)::PR, decltype(P)::PC>(af, L.ldh, x, xt, W4, 1,
+                                                    H, W, t, L.ldt, rows, n);
+      });
+    __syncthreads();
+    with_patch<kWide>(rows, W4, [&](auto P) {
+      forward_w<decltype(P)::PR, decltype(P)::PC>(t, L.ldt, btf, co, y, L.ldy,
+                                                  rows, W, MP, n, j0 == 0);
+    });
+  }
+  __syncthreads();                        // Y[band] is complete
+  if (!kBulk && RT != 1) cluster_wait();  // every block's zbar is ready
+  // Z[band] = Y[band] C_w, pushed into every block's z (asynchronous
+  // stores counted on its zbar: all of Z, H W4 floats, lands in each)
+  if (RT != 1 && threadIdx.x == 0) mbar_expect_tx(&zbar, 4u * H * W4);
+  with_patch<kWide>(rows, W4, [&](auto P) {
+    constexpr int PR = decltype(P)::PR, PC = decltype(P)::PC;
+    product<PR, PC>(y, L.ldy, bi, W4, rows, W, W4,
+                    [&](int r0, int c0, const float (&acc)[PR][PC]) {
+#pragma unroll
+                      for (int rr = 0; rr < PR; ++rr) {
+                        if (r0 + rr >= rows) break;
+                        float* dst = z + (h0 + r0 + rr) * W4 + c0;
+                        if (RT == 1) {
+                          store_row<PC>(dst, acc[rr]);
+                          continue;
+                        }
+#pragma unroll
+                        for (int peer = 0; peer < (RT > 0 ? RT : kMaxCluster);
+                             ++peer)
+                          if (RT > 0 || peer < R)
+                            push_row<PC>(mapa(dst, peer), acc[rr],
+                                         mapa(&zbar, peer));
+                      }
+                    });
+  });
+  // every band of Z has landed (a block alone: its own stores); no block
+  // reads another's memory after this, so none waits for its peers again
+  if (RT == 1) __syncthreads();
+  else mbar_wait(&zbar, 0);
+  // out[band] = C_h^T[band] Z, to the channels-last output
+  float* ob = out + off + (size_t)h0 * W * Ch;
+  with_patch<kWide>(rows, W4, [&](auto P) {
+    constexpr int PR = decltype(P)::PR, PC = decltype(P)::PC;
+    product<PR, PC>(ai, L.ldh, z, W4, rows, H, W4,
+                    [&](int r0, int c0, const float (&acc)[PR][PC]) {
+#pragma unroll
+                      for (int rr = 0; rr < PR; ++rr)
+#pragma unroll
+                        for (int cc = 0; cc < PC; ++cc)
+                          if (r0 + rr < rows && c0 + cc < W)
+                            ob[((size_t)(r0 + rr) * W + c0 + cc) * Ch] =
+                                acc[rr][cc];
+                    });
+  });
 }
 
 template <typename Kernel>
@@ -247,6 +718,41 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
 
 bool bad_shape(int B, int H, int W, int Ch) {
   return B < 1 || Ch < 1 || H < 1 || W < 1 || H > kMaxN || W > kMaxN;
+}
+
+size_t bdm_bytes(int H, int W, int MP, int nt, int xt, bool bulk) {
+  return sizeof(float) * (size_t)bdm_layout(H, W, MP, nt, xt, bulk).total;
+}
+
+template <int HT, int WT, int CT, int RT>
+int launch_bdm(const float* u, const float* eps, const float* psi,
+               const float* C, float* out, const float* ch, const float* cht,
+               const float* cw, const float* cwt, int B, int H, int W, int Ch,
+               int q, int R, int nt, size_t bytes, cudaStream_t st) {
+  auto* kern = bdm_ei_update_kernel<HT, WT, CT, RT>;
+  static bool ready = false;         // the attribute is set once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(R * B * Ch);
+  cfg.blockDim = dim3(kBdmThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, u, eps, psi, C, out, ch, cht,
+                                     cw, cwt, B, H, W, Ch, q, nt);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -273,17 +779,48 @@ int repro_dct2(const float* x, float* y, const float* a, const float* bt,
   return (int)cudaGetLastError();
 }
 
+// u, out (B, H, W, Ch); eps (q, B, H, W, Ch); psi (H, W); C (q, H, W): f32
+// device pointers, contiguous; ch, cht, cw, cwt: C_h, C_h^T, C_w, C_w^T
+// row-major; R, the blocks of a tile's cluster, in 1, 2, 4, 8 and <= H.
 int repro_bdm_ei_update(const float* u, const float* eps, const float* psi,
                         const float* C, float* out, const float* ch,
-                        const float* cw, int B, int H, int W, int Ch, int q,
+                        const float* cht, const float* cw, const float* cwt,
+                        int B, int H, int W, int Ch, int q, int R,
                         void* stream) {
-  if (bad_shape(B, H, W, Ch) || q < 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(H, W, 3);
-  cudaError_t err = allow_smem(bdm_ei_update_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  bdm_ei_update_kernel<<<B * Ch, kThreads, bytes, (cudaStream_t)stream>>>(
-      u, eps, psi, C, out, ch, cw, B, H, W, Ch, q);
-  return (int)cudaGetLastError();
+  if (bad_shape(B, H, W, Ch) || q < 0 || R < 1 || R > kMaxCluster ||
+      (R & (R - 1)) != 0 || R > H)
+    return (int)cudaErrorInvalidValue;
+  const int MP = round4((H + R - 1) / R);
+  // the served frame, every pointer 16-byte aligned: a kernel per R, with
+  // bulk copies in one pass at R >= 4 (so only for q + 1 <= kMaxPass);
+  // anything else the general kernel
+  const bool fixed = H == 32 && W == 32 && Ch == 3 &&
+                     ((((uintptr_t)u) | ((uintptr_t)eps) | ((uintptr_t)psi) |
+                       ((uintptr_t)C) | ((uintptr_t)ch) | ((uintptr_t)cht) |
+                       ((uintptr_t)cw) | ((uintptr_t)cwt)) & 15) == 0;
+  const bool bulk = fixed && R >= 4 && q + 1 <= kMaxPass;  // kBulk
+  const int xt = bulk ? H * W * Ch : H * round4(W);
+  int nt = q + 1 < kMaxPass ? q + 1 : kMaxPass;
+  while (nt > 1 && bdm_bytes(H, W, MP, nt, xt, bulk) > kMaxSmem) --nt;
+  const size_t bytes = bdm_bytes(H, W, MP, nt, xt, bulk);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fixed && (bulk || R < 4)) {
+    switch (R) {
+#define REPRO_BDM_R(N)                                                   \
+      case N:                                                            \
+        return launch_bdm<32, 32, 3, N>(u, eps, psi, C, out, ch, cht, cw, \
+                                        cwt, B, H, W, Ch, q, R, nt, bytes, \
+                                        st);
+      REPRO_BDM_R(1)
+      REPRO_BDM_R(2)
+      REPRO_BDM_R(4)
+      REPRO_BDM_R(8)
+#undef REPRO_BDM_R
+    }
+  }
+  return launch_bdm<0, 0, 0, 0>(u, eps, psi, C, out, ch, cht, cw, cwt, B, H,
+                                W, Ch, q, R, nt, bytes, st);
 }
 
 }  // extern "C"

@@ -16,13 +16,17 @@
 // a per-example block factor times a per-example diagonal row: one factor
 // apply of the pre-fusion serving step.
 //
-// What bounds them on this card: bytes.  ei_update does k (q + 1) k
+// What bounds them on this card.  ei_update: bytes.  It does k (q + 1) k
 // multiply-adds per element and must read u and the q eps rows and write
 // the output, (q + 2) |u| bytes: at the sampler's shapes (n = 64,
 // k <= 2, D = 3072, f32, q <= 3) 3-8 MB, 1-2.5 us at 3.35 TB/s, against
-// some 10^6 operations.  apply_factored reads z and diag and writes the
-// output, 2 |z| + |diag| bytes (~0.1 MB at B = 4): at that size the launch
-// is the cost.  The design does what the TPU kernel does for its VMEM
+// some 10^6 operations.  apply_factored: the launch.  It reads z and diag
+// and writes the output, 2 |z| + |diag| bytes (~0.1 MB at B = 4, a few
+// hundredths of a microsecond), so its time is an empty launch's plus one
+// round trip to memory: on an H100 it runs within 1.16x of PyTorch's fill
+// of a one-element tensor, and a design with 4 elements a thread, 16-byte
+// loads and a quarter of the blocks measured no faster; only fewer
+// launches move it.  The design does what the TPU kernel does for its VMEM
 // pass: ONE launch in which every input element is read once and every
 // output element written once (the unfused chain of q + 1 broadcast
 // multiply-adds would make q + 1 passes over the state).

@@ -25,7 +25,8 @@ Tiers (kernel vs plain version on the same card):
     order);
   * dct2 / bdm_ei_update: within 1e-6 of max |x| (max |out| for the
     update) of the plain version, whose products cuBLAS sums in another
-    order (f32 throughout: TF32 is off);
+    order (f32 throughout: TF32 is off); bdm_ei_update bitwise equal to
+    itself at every cluster size;
   * ei_update (f32 and bf16) and apply_factored: BITWISE against the plain
     version (the same unfused products and left-to-right sums, one
     rounding to bf16 at the end).
@@ -445,6 +446,40 @@ def test_bdm_ei_update_matches_plain_version(dev, q):
     assert err <= 1e-6 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("shape,q", [
+    (s, q) for s in [(64, 32, 32, 3), (2, 13, 20, 2), (2, 64, 64, 3)]
+    for q in range(5)] + [
+    (s, q) for s in [(4, 32, 32, 3), (64, 32, 32, 3)] for q in (5, 6)])
+def test_bdm_ei_update_at_every_cluster_size(dev, shape, q):
+    """Path A's shape (and a ragged 13 x 20, and 64 x 64 where shared memory
+    splits the tiles into passes) at q 0-4, and the served frame at q 5-6
+    (passes of up to 5 tiles; the kernels with bulk copies take one pass,
+    so there R 4 and 8 take the general kernel): the wrapper's one launch, and
+    the kernel at every cluster size the wrapper can pick (called directly,
+    uncounted), each within 1e-6 of max |out| of the plain version; the
+    band split changes no bit (every output is one chain in order)."""
+    g = torch.Generator().manual_seed(sum(shape) + q)
+    B, H, W, Ch = shape
+    u = torch.randn(B, H, W, Ch, generator=g).to(dev)
+    eps = torch.randn(q, B, H, W, Ch, generator=g).to(dev)
+    psi = torch.rand(H, W, 1, generator=g).to(dev)
+    C = torch.randn(q, H, W, 1, generator=g).to(dev)
+    kc.reset_launches()
+    got = dct_ops.bdm_ei_update(u, eps, psi, C)
+    want = dct_ref.bdm_ei_update_ref(u, eps, psi, C)
+    torch.cuda.synchronize()
+    assert kc.launches()["bdm_ei_update"] == 1
+    tol = 1e-6 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    for blocks in (1, 2, 4, 8):
+        out = torch.full_like(u, float("nan"))
+        dct_ops._launch_bdm(u, eps, psi, C, out, blocks)
+        torch.cuda.synchronize()
+        assert float((out - want).abs().max()) <= tol, blocks
+        assert torch.equal(out, got), blocks
+    assert kc.launches()["bdm_ei_update"] == 1
+
+
 def test_dct2_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         dct_ops.dct2(torch.zeros(1, 65, 8, 3, device=dev))
@@ -479,7 +514,8 @@ def test_ei_update_matches_plain_version(dev, B, k, D, q, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("B,k,D", [(4, 1, 3072), (4, 2, 3072), (3, 2, 300)])
+@pytest.mark.parametrize("B,k,D", [(4, 1, 3072), (4, 2, 3072), (3, 2, 300),
+                                   (4, 1, 3070), (4, 2, 3070)])
 def test_apply_factored_matches_plain_version(dev, B, k, D):
     g = torch.Generator().manual_seed(B + k + D)
     z = torch.randn(B, k, D, generator=g).to(dev)
@@ -495,6 +531,24 @@ def test_apply_factored_matches_plain_version(dev, B, k, D):
     torch.cuda.synchronize()
     assert kc.launches()["apply_factored"] == 2
     assert torch.equal(got, want) and torch.equal(strided, want)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_apply_factored_unaligned_views(dev, k):
+    """Views 4 bytes past a 16-byte boundary (contiguous, so the wrapper
+    passes them as they are; the kernel assumes no alignment): bitwise."""
+    B, D = 4, 3072
+    g = torch.Generator().manual_seed(k)
+    z = torch.randn(B * k * D + 1, generator=g).to(dev)[1:].view(B, k, D)
+    diag = torch.randn(B * D + 1, generator=g).to(dev)[1:].view(B, D)
+    blk = torch.randn(B, k, k, generator=g).to(dev)
+    assert z.data_ptr() % 16 and diag.data_ptr() % 16
+    kc.reset_launches()
+    got = ei_ops.apply_factored(blk, diag, z)
+    want = ei_ref.apply_factored_ref(blk, diag, z)
+    torch.cuda.synchronize()
+    assert kc.launches()["apply_factored"] == 1
+    assert torch.equal(got, want)
 
 
 def test_ei_update_refuses_what_it_does_not_take(dev):

@@ -153,3 +153,87 @@ def test_kernel_arithmetic_matches_jax(shape, inverse):
            "vs JAX dct_nd")
     _close(got, jkernel.dct2(jx, inverse=inverse, interpret=True), scale,
            "vs Pallas interpret")
+
+
+# --- the CUDA bdm_ei_update kernel's arithmetic, emulated in plain torch ---
+# csrc/dct2.cu's bdm_ei_update_kernel, replayed on the CPU in f32 (each
+# fused multiply-add as a product then a sum): a cluster of R =
+# cluster_blocks(B * Ch, H, 132) blocks per (b, channel) tile (an H100's
+# SMs; the split changes no bit), block r on output
+# rows [r BR, r BR + BR); passes of up to 5 tiles; per pass the forward
+# H-axis product over the panel [X_j0 | X_j0+1 | ...] (T = C_h[band] panel),
+# then the W-axis step with the coefficients, y = psi * (T_0 C_w^T), then
+# y + C_j * (T_j C_w^T) left to right; the inverse Z[band] = Y[band] C_w,
+# gathered from every band, and out[band] = C_h^T[band] Z.  Every output
+# of every product is one multiply-add chain over the sum index in order
+# (a thread's patch of outputs is several such chains side by side).
+
+def _chain(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a (..., r, n) @ m (..., n, c), one chain per output, term i in
+    order."""
+    acc = a[..., :, :1] * m[..., :1, :]
+    for i in range(1, a.shape[-1]):
+        acc = acc + a[..., :, i:i + 1] * m[..., i:i + 1, :]
+    return acc
+
+
+def _emulate_bdm(u, eps, psi, C, max_pass: int = 5) -> torch.Tensor:
+    B, H, W, Ch = u.shape
+    ch = torch.as_tensor(tdct_matrix(H), dtype=torch.float32)
+    cw = torch.as_tensor(tdct_matrix(W), dtype=torch.float32)
+    tiles = torch.cat([u[None], eps]).permute(0, 1, 4, 2, 3)  # (q+1,B,Ch,H,W)
+    coefs = torch.cat([psi[None], C])[..., 0]                  # (q+1, H, W)
+    R = tops.cluster_blocks(B * Ch, H, 132)
+    BR = -(-H // R)
+    bands = [(h0, min(h0 + BR, H)) for h0 in range(0, H, BR)]
+    z = []
+    for h0, h1 in bands:
+        y = None
+        for j0 in range(0, len(tiles), max_pass):
+            js = range(j0, min(j0 + max_pass, len(tiles)))
+            panel = torch.cat([tiles[j] for j in js], dim=-1)  # (B,Ch,H,nW)
+            t = _chain(ch[h0:h1], panel)
+            for k, j in enumerate(js):
+                v = _chain(t[..., k * W:(k + 1) * W], cw.T) * coefs[j, h0:h1]
+                y = v if y is None else y + v
+        z.append(_chain(y, cw))
+    z = torch.cat(z, dim=-2)
+    out = torch.cat([_chain(ch.T[h0:h1], z) for h0, h1 in bands], dim=-2)
+    return out.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("shape,q", [(s, q) for s in [(1, 32, 32, 3),
+                                                      (2, 13, 20, 2)]
+                                     for q in range(5)]
+                         + [((2, 13, 20, 2), 6)])
+def test_bdm_kernel_arithmetic_matches_jax(shape, q):
+    rng = np.random.default_rng(sum(shape) + q)
+    B, H, W, Ch = shape
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    u, eps = f32(*shape), f32(q, *shape)
+    psi, C = f32(H, W, 1), f32(q, H, W, 1)
+    got = _emulate_bdm(*map(torch.from_numpy, (u, eps, psi, C))).numpy()
+    want = jref.bdm_ei_update_ref(*map(jnp.asarray, (u, eps, psi, C)))
+    if q == 0:
+        # the Pallas kernel takes no zero-sized block: one zero eps row
+        # with a zero coefficient adds +0 to every frequency, the same
+        # function of u and psi
+        eps, C = np.zeros((1,) + shape, np.float32), np.zeros((1, H, W, 1),
+                                                              np.float32)
+    pallas = jkernel.bdm_ei_update(*map(jnp.asarray, (u, eps, psi, C)),
+                                   interpret=True)
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(got, want, scale, "vs JAX ref")
+    _close(got, pallas, scale, "vs Pallas interpret")
+
+
+def test_cluster_blocks_fill_the_card():
+    """A power of two, at most 8 and at most H; on an H100's 132 SMs, 8 at
+    the engine's 12 tiles, 1 at path A's 192."""
+    assert tops.cluster_blocks(12, 32, 132) == 8
+    assert tops.cluster_blocks(192, 32, 132) == 1
+    assert tops.cluster_blocks(12, 32, 48) == 4
+    for tiles in (1, 3, 12, 48, 66, 132, 192, 264, 1000):
+        for H in (1, 2, 3, 8, 13, 32, 64):
+            R = tops.cluster_blocks(tiles, H, 132)
+            assert R & (R - 1) == 0 and 1 <= R <= min(8, H)
