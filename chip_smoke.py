@@ -8,7 +8,8 @@ random weights from a seed:
 
   * `cifar10-cld` (DiffusionEngine; DiT img 32 / patch 2 / d_model 768 /
     24 layers / 12 heads, bf16; state (B, 2, 32, 32, 3)): round_fused with
-    in-kernel noise, round_predict (kf = 2), flash_attention (DiT form);
+    in-kernel noise (the whole commit one launch), round_predict (kf = 2),
+    flash_attention (DiT form);
   * `cifar10-bdm` (the same DiT over a (B, 32, 32, 3) state held as DCT
     coefficients): dct2 around every eval, step_noise + dct2 + round_fused
     with streamed noise, round_predict (kf = 1), flash_attention;
@@ -41,6 +42,10 @@ serve of each path runs under a CUPTI trace.  Two more paths follow:
     for every factor apply, step_noise for the noise), and must return the
     fused engine's samples bit for bit.
 
+One traced call of round_update and of round_predict is read on each
+engine path: exactly 1 device kernel a call (3 for BDM's round_update:
+step_noise, dct2, round_fused), or the run fails; BDM's streamed commit is
+checked and timed at 1 and 2 elements a thread (bitwise equal).
 ei_update and apply_factored are held against their plain versions and
 timed; bdm_ei_update is checked at q 0-4 and at every cluster size at B =
 4 and n = 64, and its records carry the sweep over cluster sizes and its
@@ -540,7 +545,8 @@ def slot_inputs(engine, mix, dev, gen):
     mid-trajectory, the gmm slot on its final step)."""
     bank = engine._bank
     cfg_ids = torch.tensor([engine.cache.index_of(engine.config_of(r))
-                            for r in requests(mix, 0)[:BATCH]], device=dev)
+                            for r in requests(mix, 0)[:BATCH]],
+                           dtype=torch.int32, device=dev)
     K, Qb = engine.state.u.shape[1], engine.state.hist.shape[1]
     kf = engine.spec.sde.packed_k
     D = int(np.prod(DATA))
@@ -554,65 +560,137 @@ def slot_inputs(engine, mix, dev, gen):
                 active=torch.ones(BATCH, dtype=torch.bool, device=dev))
 
 
-def round_records(path, engine, x, keys, counts, streamed: bool):
+def round_calls_of(engine, x, keys):
+    """The path's round_update (with the corrector) and round_predict calls
+    on the inputs of `slot_inputs`, through the public wrappers, and the
+    round_update arguments (args, kw)."""
+    from repro_torch.kernels.round_fused import ops as rf
+    sde, bank, kf = engine.spec.sde, x["bank"], x["kf"]
+    args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["zeros"],
+            x["zeros"], keys, x["active"], bank, x["eps_c"])
+    kw = dict(sde=sde, state_shape=sde.state_shape(DATA), kf=kf,
+              with_corrector=True, eps_n_c=x["eps_n"])
+    return (lambda: rf.round_update(*args, **kw),
+            lambda: rf.round_predict(x["u"], x["hist"], x["kc"], x["cfg"],
+                                     bank, x["eps_c"], kf=kf), args, kw)
+
+
+def call_trace(fn, calls: int = 20, tries: int = 6, lead: int = 10):
+    """(device events a call, device ms a call, the events) of `fn` from a
+    CUPTI trace: every device event (kernels, copies, fills) counts.  CUPTI
+    drops the first few device events of a trace on the H100 machine (6 in
+    a row seen), so a trace runs `lead` calls first, then a spin kernel
+    (torch.cuda._sleep) as a marker, `calls` calls and a second marker, and
+    only the events between the markers count.  Traces are taken until that
+    window holds a whole, non-zero number of events a call (each other trace
+    is logged), at most `tries`; if none does, the events a call are None
+    and the events []."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                fn()
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted(kernel_events(prof), key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        window = events[marks[0] + 1:marks[1]] if len(marks) == 2 else []
+        if window and len(window) % calls == 0:
+            return (len(window) // calls,
+                    sum(e.time_range.elapsed_us() for e in window)
+                    / calls / 1e3, window)
+        log(f"  trace {attempt}: {len(marks)} markers, {len(window)} device "
+            f"events between them for {calls} calls; tracing again")
+    return None, None, []
+
+
+def round_call_report(path, update, predict, card: str) -> dict:
+    """Log the device kernels and summed device time of one round_update
+    and one round_predict call on the path, and fail unless a round_update
+    call runs exactly 1 device kernel (3 for BDM: step_noise, dct2,
+    round_fused) and a round_predict call 1."""
+    out = {}
+    for what, fn, want in (("round_update", update,
+                            3 if path == "cifar10-bdm" else 1),
+                           ("round_predict", predict, 1)):
+        n, ms, events = call_trace(fn)
+        check(n is not None, f"[{path}] no trace of {what} calls held a "
+              "whole, non-zero number of device events a call")
+        names = sorted({e.name[:60] for e in events})
+        log(f"[{path}] one {what} call: {n} device kernels, {ms:.5f} ms "
+            f"of device time ({card}); {names}")
+        check(n == want, f"[{path}] a {what} call runs {n} device kernels "
+              f"(want {want})")
+        out[what] = dict(kernels=n, ms=ms)
+    return out
+
+
+def round_records(path, engine, x, keys, counts, streamed: bool, card: str):
     """Check round_fused and round_predict against their plain versions at
-    the path's shapes, and time them.  In streamed mode (BDM) the commit
-    kernel is given the plain canonical noise (plain draw, plain DCT), so
-    it must agree with the plain commit bit for bit; the whole wrapper
-    (step_noise, dct2, round_fused) is held within 1e-5."""
+    the path's shapes, trace one call of each, and time them.  In streamed
+    mode (BDM) the commit kernel is given the plain canonical noise (plain
+    draw, plain DCT), so it must agree with the plain commit bit for bit,
+    at 1 and at 2 elements a thread (the latter is the path's, and both are
+    timed); the whole wrapper (step_noise, dct2, round_fused) is held
+    within 1e-5."""
     from repro_torch.kernels.dct2.ref import dct2_ref
     from repro_torch.kernels.round_fused import ops as rf
     from repro_torch.kernels.round_fused import ref as rf_ref
-    sde, bank = engine.spec.sde, x["bank"]
+    bank = x["bank"]
     kf, K, Qb, D = x["kf"], x["K"], x["Qb"], x["D"]
-    state_shape = sde.state_shape(DATA)
-    n = int(np.prod(state_shape))
-    args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["zeros"],
-            x["zeros"], keys, x["active"], bank, x["eps_c"])
-    kw = dict(sde=sde, state_shape=state_shape, kf=kf, with_corrector=True,
-              eps_n_c=x["eps_n"])
-    ints = rf._stage_ints(x["k"], x["kc"], x["cfg"], x["zeros"], x["zeros"],
-                          x["active"], bank, fam_index=0, prec_index=0,
-                          with_corrector=True)
-    blks, dis = rf._stage_factors(bank, x["cfg"], x["kc"], kf, True)
+    update, predict, args, kw = round_calls_of(engine, x, keys)
+    n = int(np.prod(kw["state_shape"]))
     noise_c = None
     if streamed:
         noise = rf_ref.draw_step_noise(keys, x["kc"], bank.alg[x["cfg"]],
-                                       state_shape)
+                                       kw["state_shape"])
         noise_c = dct2_ref(noise).reshape(BATCH, kf, D)
         kw_ref = dict(kw, noise_c=noise_c)
     else:
         kw_ref = kw
 
-    got = rf.round_update(*args, **kw)
+    def fused(elems=None):
+        return rf._round_fused(*args, x["eps_n"], noise_c, kf=kf, n=n,
+                               with_corrector=True, elems=elems)
+
+    def predict_kernel():
+        return rf.round_predict_kernel(x["u"], x["hist"], x["kc"], x["cfg"],
+                                       bank, x["eps_c"], kf=kf)
+
+    got = update()
     want = rf_ref.round_update_ref(*args, **kw_ref)
-    kern = rf.round_fused(ints, keys, blks, dis, bank.diag, x["u"],
-                          x["hist"], x["eps_c"], x["eps_n"], noise_c, kf=kf,
-                          n=n, with_corrector=True)
+    kern = fused()
     torch.cuda.synchronize()
     check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
           f"[{path}] round_fused k/active differ from the plain version")
-    check(torch.equal(kern[2], want[2]) and torch.equal(kern[3].bool(),
-                                                        want[3]),
+    check(torch.equal(kern[2], want[2]) and torch.equal(kern[3], want[3]),
           f"[{path}] round_fused kernel k/active differ")
     err_fused = max(max_err(a, b) for a, b in zip(kern[:2], want[:2]))
     err_wrap = max(max_err(a, b) for a, b in zip(got[:2], want[:2]))
     det = ~bank.stochastic[x["cfg"]]
     bitwise = torch.equal(kern[0][det], want[0][det]) if not streamed \
         else torch.equal(kern[0], want[0]) and torch.equal(kern[1], want[1])
+    same_e = not streamed or all(torch.equal(a, b)
+                                 for a, b in zip(kern, fused(1)))
     log(f"[{path}] round_fused vs plain: kernel max abs err {err_fused:.3e}"
         f" (tol 1e-5), max {ulp_err(kern[0], want[0]):.1f} ulp, "
         f"{'all' if streamed else 'deterministic'} slots bitwise: "
         f"{bitwise}; through round_update {err_wrap:.3e} (tol 1e-5); "
-        f"k/active exact")
+        f"k/active exact" + ("; 1 and 2 elements a thread bitwise: "
+                             f"{same_e}" if streamed else ""))
     check(err_fused <= 1e-5 and err_wrap <= 1e-5,
           f"[{path}] round_fused beyond tolerance")
-    if streamed:
-        check(bitwise, f"[{path}] streamed round_fused not bitwise on the "
-              "same canonical noise")
+    check(bitwise, f"[{path}] round_fused not bitwise on the "
+          f"{'same canonical noise' if streamed else 'deterministic slots'}")
+    check(same_e, f"[{path}] round_fused differs between elements a thread")
 
-    pred = rf.round_predict(x["u"], x["hist"], x["kc"], x["cfg"], bank,
-                            x["eps_c"], kf=kf)
+    pred = predict()
     pred_ref = rf_ref.round_predict_ref(x["u"], x["hist"], x["kc"],
                                         x["cfg"], bank, x["eps_c"], kf=kf)
     torch.cuda.synchronize()
@@ -620,7 +698,12 @@ def round_records(path, engine, x, keys, counts, streamed: bool):
     log(f"[{path}] round_predict vs plain: max abs err {err_pred:.3e} (tol "
         f"1e-5), max {ulp_err(pred, pred_ref):.1f} ulp")
     check(err_pred <= 1e-5, f"[{path}] round_predict beyond tolerance")
+    per_call = round_call_report(path, update, predict, card)
 
+    ints = rf._stage_ints(x["k"], x["kc"], x["cfg"], x["zeros"], x["zeros"],
+                          x["active"], bank, fam_index=0, prec_index=0,
+                          with_corrector=True)
+    blks, dis = rf._stage_factors(bank, x["cfg"], x["kc"], kf, True)
     f_bytes, f_ops = fused_round_need(ints, dis, K=K, Qb=Qb, kf=kf, D=D,
                                       streamed=streamed)
     every = rf.fused_round_cost(B=BATCH, K=K, Qb=Qb, kf=kf, D=D,
@@ -642,28 +725,32 @@ def round_records(path, engine, x, keys, counts, streamed: bool):
         "cifar10-cld": ("round_fused", "round_predict"),
         "cifar10-bdm": ("round_fused[streamed]", f"round_predict[kf={kf}]"),
         "cifar10-ddpm": ("round_fused[ddpm]", "round_predict[ddpm]")}[path]
-    return [
+    recs = [
         timed_record(
             fused_name, path, src,
             "src/repro/kernels/round_fused/kernel.py:293",
-            counts.get("round_fused", 0), err_fused,
-            lambda: rf.round_fused(ints, keys, blks, dis, bank.diag, x["u"],
-                                   x["hist"], x["eps_c"], x["eps_n"],
-                                   noise_c, kf=kf, n=n, with_corrector=True),
+            counts.get("round_fused", 0), err_fused, fused,
             "round_fused_kernel",
             lambda: rf_ref.round_update_ref(*args, **kw_ref),
             f_bytes, f_ops, F32_FLOPS),
         timed_record(
             predict_name, path, src,
             "src/repro/kernels/round_fused/kernel.py:362",
-            counts.get("round_predict", 0), err_pred,
-            lambda: rf.round_predict_kernel(pblks, pdis, bank.diag, x["u"],
-                                            x["hist"], x["eps_c"], kf=kf),
+            counts.get("round_predict", 0), err_pred, predict_kernel,
             "round_predict_kernel",
             lambda: rf_ref.round_predict_ref(x["u"], x["hist"], x["kc"],
                                              x["cfg"], bank, x["eps_c"],
                                              kf=kf),
             p_bytes, p_ops, F32_FLOPS)]
+    recs[0]["call"] = per_call["round_update"]
+    recs[1]["call"] = per_call["round_predict"]
+    if streamed:
+        sweep = {e: time_ms(lambda: fused(e), kernel="round_fused_kernel")[0]
+                 for e in (1, 2)}
+        log(f"  {fused_name} [{path}] by elements a thread (median launch, "
+            f"ms): {sweep}")
+        recs[0]["elems_sweep_ms"] = sweep
+    return recs
 
 
 def attention_check(path, cfg, n, gen, dev):
@@ -804,6 +891,17 @@ def dct_records(counts, gen, dev, floor):
             F32_FLOPS), u, eps, psi, C, floor)]
 
 
+def noise_inputs(dev):
+    """The noise check's keys (the uint32 words, and as int32 bit patterns),
+    step indices and algorithm ids, one per slot."""
+    from repro_torch import random as prng
+    g = torch.Generator().manual_seed(3)
+    keys64 = torch.randint(0, 2**32, (BATCH, 2), generator=g).to(dev)
+    return (keys64, prng.to_int32_bits(keys64),
+            torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=dev),
+            torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev))
+
+
 def noise_check(keys64, keys, kcs, algs, n):
     """step_noise (the round kernel's threefry draw on its own) against the
     plain PRNG: bits exact, normals within 2 ulp; returns the max abs
@@ -811,8 +909,9 @@ def noise_check(keys64, keys, kcs, algs, n):
     from repro_torch import random as prng
     from repro_torch.kernels.round_fused import ops as rf
     from repro_torch.kernels.round_fused import ref as rf_ref
-    z_k, bits_k = rf.step_noise_kernel(keys, kcs, algs, n=n,
-                                         with_bits=True)
+    cfgs = torch.arange(len(algs), dtype=torch.int32, device=keys.device)
+    z_k, bits_k = rf.step_noise_kernel(keys, kcs, cfgs, algs, n=n,
+                                       with_bits=True)
     step_key = prng.fold_in(prng.fold_in(keys64, algs), kcs)
     f = torch.arange(n, device=keys.device)[None]
     bits_p = prng.bits_at(step_key[:, None], f, n)
@@ -1479,7 +1578,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from repro_torch import random as prng
     from repro_torch.kernels import cuda as kc
     from repro_torch.launch.serve import parse_sampler_spec
 
@@ -1505,11 +1603,7 @@ def main() -> int:
                 log(f"  ptxas[{name}]   {line.strip()}")
 
     # ---- 2. the kernel's noise draw against the plain PRNG --------------
-    g = torch.Generator().manual_seed(3)
-    keys64 = torch.randint(0, 2**32, (BATCH, 2), generator=g).to(dev)
-    keys = prng.to_int32_bits(keys64)
-    kcs = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=dev)
-    algs = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
+    keys64, keys, kcs, algs = noise_inputs(dev)
     noise_check(keys64, keys, kcs, algs, 2 * 3072)       # CLD's state
     err_noise = noise_check(keys64, keys, kcs, algs, 3072)       # BDM's
 
@@ -1539,7 +1633,7 @@ def main() -> int:
     for name, (spec, net, engine, counts, _) in paths.items():
         x = slot_inputs(engine, mix, dev, gen)
         records += round_records(name, engine, x, keys, counts,
-                                 streamed=name == "cifar10-bdm")
+                                 streamed=name == "cifar10-bdm", card=card)
         records.append(attention_record(name, spec, net, counts, gen, dev))
     bdm_counts = paths["cifar10-bdm"][3]
     floor = launch_floor_ms()
@@ -1549,14 +1643,16 @@ def main() -> int:
     from repro_torch.kernels.round_fused import ops as rf
     from repro_torch.kernels.round_fused import ref as rf_ref
     n = 3072
+    cfgs = torch.arange(BATCH, dtype=torch.int32, device=dev)
     records.append(timed_record(
         "step_noise", "cifar10-bdm", "src/repro_torch/csrc/round_fused.cu",
         "src/repro/kernels/round_fused/kernel.py:110",
         bdm_counts.get("step_noise", 0), err_noise,
-        lambda: rf.step_noise_kernel(keys, kcs, algs, n=n),
+        lambda: rf.step_noise_kernel(keys, kcs, cfgs, algs, n=n),
         "step_noise_kernel",
         lambda: rf_ref.draw_step_noise(keys, kcs, algs, (n,)),
-        4 * (BATCH * (2 + 2) + BATCH * n), 0, F32_FLOPS))
+        # keys, kc, cfg and alg[cfg] a slot in, the draw out
+        4 * (BATCH * (2 + 1 + 1 + 1) + BATCH * n), 0, F32_FLOPS))
 
     records += lm_records(lm_engine, lm_counts, gen, dev)
     lm_model_check(lm_engine, gen, dev)

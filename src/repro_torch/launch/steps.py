@@ -237,7 +237,7 @@ def make_diffusion_serve_step(spec, coeffs=None):
         for j in range(Qb):
             u_pred = u_pred + apply_factored(*gatq("pC", j), hist[:, j, :kf])
         # stochastic branch (Eq. 22/23), computed for every slot
-        noise = step_noise(keys, kc, bank.alg[cfg], n=n).reshape(
+        noise = step_noise(keys, kc, cfg, bank.alg, n=n).reshape(
             (B,) + tuple(state_shape)).to(u.dtype)
         u_sto = u_lin + apply_factored(*gat("B"), eps_c) \
             + apply_factored(*gat("P_chol"), sde.canonicalize(noise))

@@ -11,6 +11,11 @@ Tiers (kernel vs plain version on the same card):
     uint32 bits exact; deterministic slots bitwise (same unfused f32
     arithmetic); u / hist within rtol = atol = 1e-5 (the in-kernel normals
     are within 2 ulp of the plain PRNG's emulated fused multiply-adds);
+    at history buckets 2, 4, 8 (an instance each) and 3, 16, 32 (the
+    general instance) and pools of 1, 2 and 5 rows; BDM's commit bitwise
+    equal at one and two elements a thread; one traced round_update call
+    is 1 device kernel (3 for BDM: step_noise, dct2, round_fused) and one
+    round_predict call 1, read from the profiler;
   * round_fused in streamed-noise mode (BDM): bitwise against the plain
     version on the same canonical noise; through the whole wrapper (the
     kernel's own draw, the dct2 kernel, the commit) within rtol = atol =
@@ -47,7 +52,7 @@ from repro_torch.kernels.ei_update import ops as ei_ops
 from repro_torch.kernels.ei_update import ref as ei_ref
 from repro_torch.kernels.round_fused import ops as rf
 from repro_torch.kernels.round_fused import ref as rf_ref
-from repro_torch.sde import BDM, CLD
+from repro_torch.sde import BDM, CLD, VPSDE
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +92,7 @@ def _bank(dev, D, K=2, CB=8, NB=8, QB=2, PB=3, seed=0):
 def _state(dev, cfgs, bank, D, K=2, QB=2, seed=1):
     g = torch.Generator().manual_seed(seed)
     B = len(cfgs)
-    cfg = torch.tensor(cfgs, device=dev)
+    cfg = torch.tensor(cfgs, dtype=torch.int32, device=dev)
     k = torch.randint(0, 5, (B,), generator=g, dtype=torch.int32).to(dev)
     kc_ = torch.minimum(k, bank.n_steps[cfg] - 1)
     keys = prng.to_int32_bits(torch.randint(0, 2**32, (B, 2), generator=g))
@@ -148,7 +153,9 @@ def test_noise_bits_exact_and_normals_within_2_ulp(dev):
     keys = prng.to_int32_bits(keys64)
     kcs = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=dev)
     algs = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
-    z, bits = rf.step_noise_kernel(keys, kcs, algs, n=n, with_bits=True)
+    cfgs = torch.arange(B, dtype=torch.int32, device=dev)   # alg[cfg] = algs
+    z, bits = rf.step_noise_kernel(keys, kcs, cfgs, algs, n=n,
+                                   with_bits=True)
     step = prng.fold_in(prng.fold_in(keys64, algs), kcs)
     f = torch.arange(n, device=dev)[None]
     want_bits = prng.bits_at(step[:, None], f, n)
@@ -393,16 +400,11 @@ def test_round_fused_streamed_noise_matches_plain_version(dev, cfgs, corr):
               eps_n_c=x["eps_n_c"])
     want = rf_ref.round_update_ref(*args, noise_c=noise_c, **kw)
 
-    ints = rf._stage_ints(x["k"], x["kc"], x["cfg"], x["fam"], x["prec"],
-                          x["active"], bank, fam_index=0, prec_index=0,
-                          with_corrector=corr)
-    blks, dis = rf._stage_factors(bank, x["cfg"], x["kc"], 1, corr)
-    got = rf.round_fused(ints, x["keys"], blks, dis, bank.diag, x["u"],
-                         x["hist"], x["eps_c"], x["eps_n_c"], noise_c,
-                         kf=1, n=D, with_corrector=corr)
+    got = rf.round_fused(*args, x["eps_n_c"], noise_c, kf=1, n=D,
+                         with_corrector=corr)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert torch.equal(got[2], want[2]) and torch.equal(got[3].bool(), want[3])
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
 
     kc.reset_launches()
     full = rf.round_update(*args, **kw)
@@ -412,6 +414,177 @@ def test_round_fused_streamed_noise_matches_plain_version(dev, cfgs, corr):
     assert torch.equal(full[2], want[2]) and torch.equal(full[3], want[3])
     for a, b in zip(full[:2], want[:2]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# the engine paths' commit: (sde, data shape, K = kf); BDM streams its noise
+def _path(name, D):
+    if name == "cld":
+        return CLD(), (2, D), 2
+    if name == "ddpm":
+        return VPSDE(), (D,), 1
+    side = {48: 4, 3072: 32}[D]
+    return BDM(data_shape=(side, side, 3)), (side, side, 3), 1
+
+
+def _mixed(dev, name, D, corr, seed=1, PB=5, QB=2):
+    """A batch of the path's shape mixing, on CLD's corner configs, a
+    retired slot (1), a foreign-family slot (2) and a slot on its final step
+    (3: no corrector there, and it retires); a pool of PB rows (the engines'
+    VPSDE and CLD banks hold 1), a history bucket of QB."""
+    sde, shape, kf = _path(name, D)
+    bank = _bank(dev, D, K=kf, PB=PB, QB=QB)
+    x = _state(dev, [1, 2, 3, 1] if corr else [0, 3, 2, 4], bank, D, K=kf,
+               QB=QB, seed=seed)
+    x["k"][3] = bank.n_steps[x["cfg"][3]] - 1
+    x["kc"] = torch.minimum(x["k"], bank.n_steps[x["cfg"]] - 1)
+    x["eps_c"] = x["eps_c"][:, :kf].contiguous()
+    x["eps_n_c"] = x["eps_n_c"][:, :kf].contiguous()
+    args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["fam"],
+            x["prec"], x["keys"], x["active"], bank, x["eps_c"])
+    kw = dict(sde=sde, state_shape=shape, kf=kf, with_corrector=corr,
+              eps_n_c=x["eps_n_c"])
+    return bank, x, args, kw
+
+
+# (path, D, pool rows, history bucket): pools of 1 and 2 rows are read whole
+# and picked by value (the engines' VPSDE and CLD banks hold 1), larger
+# ones gathered; Qb 2, 4, 8 have instances of their own, any other bucket
+# (3, 16, 32) runs the general one
+@pytest.mark.parametrize("name,D,pb,qb", [
+    ("cld", 48, 5, 2), ("cld", 3070, 5, 2), ("cld", 3072, 5, 2),
+    ("ddpm", 48, 5, 2), ("ddpm", 3070, 5, 2), ("ddpm", 3072, 5, 2),
+    ("bdm", 48, 5, 2), ("bdm", 3072, 5, 2),
+    ("cld", 3072, 1, 2), ("cld", 3070, 2, 2), ("ddpm", 3072, 1, 2),
+    ("ddpm", 3070, 2, 2), ("cld", 3072, 1, 4), ("ddpm", 3072, 2, 8),
+    ("cld", 3072, 1, 16), ("ddpm", 3070, 2, 16), ("bdm", 3072, 5, 16),
+    ("cld", 48, 5, 32), ("ddpm", 48, 1, 3)])
+@pytest.mark.parametrize("corr", [False, True])
+def test_round_update_on_every_path(dev, name, D, pb, qb, corr):
+    """round_update and round_predict on each engine path's layout against
+    round_update_ref / round_predict_ref: deterministic slots bitwise (all
+    slots for BDM, given the same canonical noise), the rest within 1e-5,
+    k / active exact; the frozen slots verbatim."""
+    bank, x, args, kw = _mixed(dev, name, D, corr, PB=pb, QB=qb)
+    kf = kw["kf"]
+    kc.reset_launches()
+    got = rf.round_update(*args, **kw)
+    pred = rf.round_predict(x["u"], x["hist"], x["kc"], x["cfg"], bank,
+                            x["eps_c"], kf=kf)
+    want = rf_ref.round_update_ref(*args, **kw)
+    pred_ref = rf_ref.round_predict_ref(x["u"], x["hist"], x["kc"],
+                                        x["cfg"], bank, x["eps_c"], kf=kf)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    assert n["round_fused"] == 1 and n["round_predict"] == 1
+    assert n.get("step_noise", 0) == (name == "bdm")
+    assert got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert not bool(got[3][3])                     # retired on its last step
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    det = ~bank.stochastic[x["cfg"]]
+    assert torch.equal(got[0][det], want[0][det])
+    assert torch.equal(got[1], want[1])
+    for i in (1, 2):
+        assert torch.equal(got[0][i], x["u"][i])
+        assert torch.equal(got[1][i], x["hist"][i])
+    assert torch.equal(pred, pred_ref)
+    if name == "bdm":
+        alg = bank.alg[x["cfg"]]
+        noise = rf_ref.draw_step_noise(x["keys"], x["kc"], alg,
+                                       kw["state_shape"])
+        noise_c = kw["sde"].canonicalize(noise).contiguous()
+        want_s = rf_ref.round_update_ref(*args, noise_c=noise_c, **kw)
+        got_s = rf.round_fused(*args, x["eps_n_c"], noise_c, kf=1, n=D,
+                               with_corrector=corr)
+        torch.cuda.synchronize()
+        for a, b in zip(got_s, want_s):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [3072, 48])
+@pytest.mark.parametrize("corr", [False, True])
+def test_streamed_commit_bitwise_at_one_and_two_elems(dev, D, corr):
+    """BDM's commit, which takes two elements a thread, bitwise equal to
+    itself at one (the width every other launch takes)."""
+    bank, x, args, kw = _mixed(dev, "bdm", D, corr)
+    n = int(torch.tensor(kw["state_shape"]).prod())
+    z = rf.step_noise_kernel(x["keys"], x["kc"], x["cfg"], bank.alg, n=n)
+    noise_c = kw["sde"].canonicalize(
+        z.reshape((4,) + kw["state_shape"])).contiguous()
+    outs = [rf._round_fused(*args, x["eps_n_c"], noise_c, kf=1, n=n,
+                            with_corrector=corr, elems=e) for e in (1, 2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _device_events_of_one_call(call, lead=10):
+    """The device events (names) of one `call` from a CUPTI trace: CUPTI
+    drops the first few events of a trace, so `lead` calls run first, then
+    the call between two spin kernels (torch.cuda._sleep), and only the
+    events between them count."""
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+            for _ in range(lead):
+                call()
+            torch.cuda._sleep(1000)
+            call()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in p.events() if e.device_type == cuda_dev),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) == 2:
+            return [e.name for e in events[marks[0] + 1:marks[1]]]
+    raise AssertionError("no trace held both marker kernels")
+
+
+@pytest.mark.parametrize("name", ["cld", "ddpm", "bdm"])
+def test_one_traced_call_is_one_device_kernel(dev, name):
+    """One round_update call runs 1 device kernel (3 for BDM: step_noise,
+    dct2, round_fused) and one round_predict call 1, counted from a CUPTI
+    trace (every device event: kernels, copies, fills), not from the
+    wrappers' launch counts."""
+    bank, x, args, kw = _mixed(dev, name, 3072, True)
+    calls = {"round_update": (lambda: rf.round_update(*args, **kw),
+                              3 if name == "bdm" else 1),
+             "round_predict": (lambda: rf.round_predict(
+                 x["u"], x["hist"], x["kc"], x["cfg"], bank, x["eps_c"],
+                 kf=kw["kf"]), 1)}
+    for what, (call, want) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        events = _device_events_of_one_call(call)
+        assert len(events) == want, (what, events)
+
+
+def test_round_kernels_refuse_what_they_do_not_take(dev):
+    bank, x, args, kw = _mixed(dev, "cld", 48, False)
+    bad = {"psi_blk": bank.psi_blk.transpose(2, 3),           # strided
+           "diag": bank.diag.double(),                         # f64
+           "n_steps": bank.n_steps.long(),                     # int64
+           "stochastic": bank.stochastic.int()}                # not bool
+    errors = {"psi_blk": ValueError, "diag": TypeError, "n_steps": TypeError,
+              "stochastic": TypeError}
+    for leaf, t in bad.items():
+        b2 = bank._replace(**{leaf: t})
+        with pytest.raises(errors[leaf]):
+            rf.round_update(*args[:9], b2, *args[10:], **kw)
+        if leaf in ("psi_blk", "diag"):
+            with pytest.raises(errors[leaf]):
+                rf.round_predict(x["u"], x["hist"], x["kc"], x["cfg"], b2,
+                                 x["eps_c"], kf=2)
+    with pytest.raises(TypeError):                          # int64 cfg
+        rf.round_update(*args[:4], x["cfg"].long(), *args[5:], **kw)
+    with pytest.raises(TypeError):                          # int64 alg
+        rf.step_noise_kernel(x["keys"], x["kc"], x["cfg"], bank.alg.long(),
+                             n=96)
+    with pytest.raises(TypeError):                          # int64 cfg
+        rf.step_noise_kernel(x["keys"], x["kc"], x["cfg"].long(), bank.alg,
+                             n=96)
 
 
 @pytest.mark.parametrize("shape", [(4, 32, 32, 3), (4, 8, 8, 3),

@@ -202,6 +202,49 @@ def test_stage_factors_and_ints_layout(banks):
     np.testing.assert_array_equal(ints[:, 7].numpy(), [0, 1, 2])   # alg
 
 
+@pytest.mark.parametrize("kf", [1, 2])
+@pytest.mark.parametrize("corr", [False, True])
+def test_kernel_offsets_match_the_staged_layout(banks, kf, corr):
+    """The factor-slot layout the kernels follow (`factor_layout`, the
+    source's `factor_slot`) and the flat offsets a block computes into the
+    bank tables the wrapper hands it (`factor_offsets`), read from the flat
+    tables, equal `_stage_factors` element for element (commit and
+    predictor), and the per-config flags a block reads at offset cfg equal
+    `_stage_ints`'s columns, for random (cfg, kc)."""
+    _, tbank = banks
+    rng = np.random.default_rng(20 + 2 * kf + corr)
+    B = 6
+    cfg = torch.from_numpy(rng.integers(0, CB, B).astype(np.int32))
+    kc = torch.from_numpy(rng.integers(0, NB, B).astype(np.int32))
+    for predict in (False, True):
+        layout = trf.factor_layout(QB, corr, predict_only=predict)
+        blk_off, di_off = trf.factor_offsets(layout, cfg, kc, Nb=NB, K=K,
+                                             kf=kf)
+        flat = lambda nm, part, off: \
+            getattr(tbank, f"{nm}_{part}").reshape(-1)[off]
+        blks = torch.stack([flat(nm, "blk", blk_off[:, c])
+                            for c, (nm, _, _) in enumerate(layout)], dim=1)
+        dis = torch.stack([flat(nm, "di", di_off[:, c])
+                           for c, (nm, _, _) in enumerate(layout)], dim=1)
+        want_b, want_i = trf._stage_factors(tbank, cfg, kc, kf, corr,
+                                            predict_only=predict)
+        assert len(layout) == want_b.shape[1]
+        assert torch.equal(blks, want_b) and torch.equal(dis, want_i)
+    k = torch.from_numpy(rng.integers(0, 9, B).astype(np.int32))
+    fam = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32))
+    prec = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32))
+    active = torch.from_numpy(rng.integers(0, 2, B).astype(bool))
+    ints = trf._stage_ints(k, kc, cfg, fam, prec, active, tbank,
+                           fam_index=1, prec_index=0, with_corrector=corr)
+    at_cfg = lambda t: t.reshape(-1)[cfg.long()].to(torch.int32)
+    for col, t in ((2, tbank.n_steps), (4, tbank.stochastic),
+                   (7, tbank.alg)):
+        assert torch.equal(ints[:, col], at_cfg(t))
+    use_c = at_cfg(tbank.corrector).bool() & (kc < at_cfg(tbank.n_steps) - 1)
+    assert torch.equal(ints[:, 5].bool(), use_c & corr)
+    assert torch.equal(ints[:, 3].bool(), active & (fam == 1) & (prec == 0))
+
+
 def test_cpu_tensors_never_reach_the_kernel_and_cuda_ones_never_the_ref(
         monkeypatch, banks):
     """Dispatch is by device alone: a CPU state runs the plain version and
