@@ -46,9 +46,16 @@ One traced call of round_update and of round_predict is read on each
 engine path: exactly 1 device kernel a call (3 for BDM's round_update:
 step_noise, dct2, round_fused), or the run fails; BDM's streamed commit is
 checked and timed at 1 and 2 elements a thread (bitwise equal).
-ei_update and apply_factored are held against their plain versions and
-timed; bdm_ei_update is checked at q 0-4 and at every cluster size at B =
-4 and n = 64, and its records carry the sweep over cluster sizes and its
+ei_update is held bitwise against its plain version at q 0-4, k 1-2, f32
+and bf16, in both instances (one 16-byte access a thread, and scalar) and
+with the history stacked and as separate rows; its records (timed on
+rows, as path A calls it) carry its q sweep (1-4), the launch floor, and
+one traced `core.gddim._update` call at path A's shape (q 2) on VPSDE and
+CLD, on eps rows that the config's score net returned, which must be
+exactly 1 device kernel.
+apply_factored is held against its plain version and timed; bdm_ei_update
+is checked at q 0-4 and at every cluster size at B = 4 and n = 64, and
+its records carry the sweep over cluster sizes and its
 FMA floor beside the byte bound; the launch floor (PyTorch's fill of a
 one-element tensor, timed once) rides on the apply_factored and
 bdm_ei_update records; CLD on the exact score of a four-mode 2-D mixture
@@ -1085,38 +1092,107 @@ def drive_path_b(name: str, path, mix, card: str):
     return counts
 
 
+def ei_q_check(gen, dev) -> None:
+    """ei_update at path A's shape (n = A_N, D 3072), k 1-2, q 0-4, f32 and
+    bf16, the history stacked and as separate rows: the wrapper (one
+    launch, the 16-byte instance) and the scalar instance through the
+    private override bitwise equal to the plain version."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels.ei_update import ops as ei_ops
+    from repro_torch.kernels.ei_update import ref as ei_ref
+    D = int(np.prod(DATA))
+    hgen = torch.Generator().manual_seed(17)
+    n = 0
+    for k in (1, 2):
+        for q in range(ei_ops.MAX_Q + 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                u = torch.randn(A_N, k, D, generator=gen, device=dev)
+                eps = torch.randn(q, A_N, k, D, generator=gen, device=dev)
+                u, eps = u.to(dtype), eps.to(dtype)
+                psi = torch.randn(k, k, generator=hgen)
+                C = torch.randn(q, k, k, generator=hgen)
+                want = ei_ref.ei_update_ref(u, eps, psi, C)
+                for hist in (eps, [eps[j].clone() for j in range(q)]):
+                    n0 = kc.launches().get("ei_update", 0)
+                    got = ei_ops.ei_update(u, hist, psi, C)
+                    torch.cuda.synchronize()
+                    check(kc.launches()["ei_update"] == n0 + 1
+                          and torch.equal(got, want), f"ei_update (k {k}, "
+                          f"q {q}, {dtype}, history as "
+                          f"{type(hist).__name__}): one launch, bitwise")
+                    got = ei_ops._ei_update(u, hist, psi, C, elems=1)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"ei_update (k {k}, q {q}, "
+                          f"{dtype}), scalar instance, differs from its "
+                          "plain version")
+                    n += 2
+    log(f"ei_update vs plain at ({A_N}, k, {D}), k 1-2, q 0-4, f32 and bf16, "
+        f"history stacked and as rows, the 16-byte and the scalar instance: "
+        f"{n} calls bitwise (tol: bitwise)")
+
+
+def ei_rows(k: int, q: int, gen, dev):
+    """Path A's inputs to one ei_update at (A_N, k, D): u, q history rows
+    allocated one by one as the sampler's evals leave them, psi, C."""
+    D = int(np.prod(DATA))
+    u = torch.randn(A_N, k, D, generator=gen, device=dev)
+    rows = [torch.randn(A_N, k, D, generator=gen, device=dev)
+            for _ in range(q)]
+    hgen = torch.Generator().manual_seed(100 * k + q)
+    return u, rows, torch.randn(k, k, generator=hgen), \
+        torch.randn(q, k, k, generator=hgen)
+
+
+def ei_q_sweep(k: int, gen, dev) -> dict:
+    """Median launch of the ei_update kernel at (A_N, k, D), f32, on rows,
+    at q 1-4."""
+    from repro_torch.kernels.ei_update import ops as ei_ops
+    q_sweep = {}
+    for q in range(1, ei_ops.MAX_Q + 1):
+        u, rows, psi, C = ei_rows(k, q, gen, dev)
+        q_sweep[q] = time_ms(lambda: ei_ops.ei_update(u, rows, psi, C),
+                             kernel="ei_update_kernel")[0]
+    return q_sweep
+
+
+def update_call(spec, net, gen, dev, q: int = 2):
+    """One `core.gddim._update` call as path A makes it on config `spec`
+    with score net `net`: the state (A_N, *state) and q eps rows as the
+    sampler's eps_fn returns them (the net at q grid times), host
+    coefficients."""
+    from repro_torch.core import gddim, time_grid
+    sde = spec.sde
+    shape = (A_N,) + tuple(sde.state_shape(DATA))
+    k = sde.packed_k
+    u = torch.randn(shape, generator=gen, device=dev)
+    eps_fn = spec.make_eps_fn(net, time_grid(sde, A_RUNS[0]["nfe"]))
+    with torch.no_grad():
+        eps = [eps_fn(u, i) for i in range(1, q + 1)]
+    hgen = torch.Generator().manual_seed(q)
+    psi, C = torch.randn(k, k, generator=hgen), \
+        torch.randn(q, k, k, generator=hgen)
+    return lambda: gddim._update(sde, u, eps, psi, C)
+
+
 def ei_records(path_a, b_counts, gen, dev, floor):
-    """ei_update at path A's shapes (n = A_N, k 1 and 2, q 1-3, f32 and
-    bf16) and apply_factored at path B's (B = BATCH, k 1 and 2) against
-    their plain versions (bitwise: the same unfused products and
-    left-to-right sums), then timed beside their bounds and a library
-    call: one einsum over the pre-stacked [u; eps] and [psi; C] for
-    ei_update, `torch.bmm(blk, z) * diag` (two calls) for apply_factored,
-    whose records also carry the launch floor (`floor`, ms).
-    bdm_ei_update is timed again at path A's shape, with its cluster
-    sweep and floors."""
+    """ei_update at path A's shapes (n = A_N, k 1 and 2, q 0-4, f32 and
+    bf16, every instance, the history stacked and as rows) and
+    apply_factored at path B's (B = BATCH, k 1 and 2) against their plain
+    versions (bitwise: the same unfused products and left-to-right sums),
+    then timed beside their bounds and a library call: one einsum over the
+    pre-stacked [u; eps] and [psi; C] for ei_update (timed on rows, as path
+    A calls it), `torch.bmm(blk, z) * diag` (two calls) for apply_factored;
+    the records of both carry the launch floor (`floor`, ms), ei_update's
+    its q sweep and one traced `core.gddim._update` call on the net's eps
+    rows (device events, which must be 1, and device ms).  bdm_ei_update is
+    timed again at path A's shape, with its cluster sweep and floors."""
     from repro_torch.kernels.dct2 import ops as dct_ops
     from repro_torch.kernels.dct2 import ref as dct_ref
     from repro_torch.kernels.ei_update import ops as ei_ops
     from repro_torch.kernels.ei_update import ref as ei_ref
     D = int(np.prod(DATA))
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    hgen = torch.Generator().manual_seed(17)
-    worst = 0.0
-    for k in (1, 2):
-        for q in (1, 2, 3):
-            for dtype in (torch.float32, torch.bfloat16):
-                u, eps = rnd(A_N, k, D).to(dtype), rnd(q, A_N, k, D).to(dtype)
-                psi = torch.randn(k, k, generator=hgen)
-                C = torch.randn(q, k, k, generator=hgen)
-                got = ei_ops.ei_update(u, eps, psi, C)
-                want = ei_ref.ei_update_ref(u, eps, psi, C)
-                torch.cuda.synchronize()
-                worst = max(worst, max_err(got, want))
-                check(torch.equal(got, want), f"ei_update (k {k}, q {q}, "
-                      f"{dtype}) differs from its plain version")
-    log(f"ei_update vs plain at ({A_N}, k, {D}), k 1-2, q 1-3, f32 and "
-        f"bf16: bitwise (tol: bitwise), max abs err {worst:.3e}")
+    ei_q_check(gen, dev)
     af = {}
     for k in (1, 2):
         blk, diag, z = rnd(BATCH, k, k), rnd(BATCH, D), rnd(BATCH, k, D)
@@ -1133,26 +1209,39 @@ def ei_records(path_a, b_counts, gen, dev, floor):
     records = []
     q = 2
     for name, k in (("cifar10-ddpm", 1), ("cifar10-cld", 2)):
-        u, eps = rnd(A_N, k, D), rnd(q, A_N, k, D)
-        psi = torch.randn(k, k, generator=hgen)
-        C = torch.randn(q, k, k, generator=hgen)
-        stacked = torch.cat([u[None], eps]).contiguous()
+        u, rows, psi, C = ei_rows(k, q, gen, dev)
+        stacked = torch.stack([u] + rows)
         coef = torch.cat([psi[None], C]).to(dev)
-        err = max_err(ei_ops.ei_update(u, eps, psi, C),
-                      ei_ref.ei_update_ref(u, eps, psi, C))
+        err = max_err(ei_ops.ei_update(u, rows, psi, C),
+                      ei_ref.ei_update_ref(u, rows, psi, C))
         check(err == 0.0, f"ei_update (k {k}, q {q}) differs from its plain "
               "version on the timed inputs")
         records.append(timed_record(
             f"ei_update[k={k}]", f"{name} (path A)", src,
             "src/repro/kernels/ei_update/kernel.py:96",
             sum(r["counts"].get("ei_update", 0) for r in path_a[name][2]),
-            err, lambda: ei_ops.ei_update(u, eps, psi, C), "ei_update_kernel",
-            lambda: ei_ref.ei_update_ref(u, eps, psi, C),
+            err, lambda: ei_ops.ei_update(u, rows, psi, C),
+            "ei_update_kernel",
+            lambda: ei_ref.ei_update_ref(u, rows, psi, C),
             4 * (q + 2) * u.numel(), 2 * u.numel() * k * (q + 1), F32_FLOPS,
             library_fn=lambda: torch.einsum("jck,jbkd->bcd", coef,
                                             stacked)))
-        records[-1]["launches_per_run"] = [
-            r["counts"].get("ei_update", 0) for r in path_a[name][2]]
+        q_sweep = ei_q_sweep(k, gen, dev)
+        spec, net = path_a[name][:2]
+        n_ev, call_ms, events = call_trace(update_call(spec, net, gen, dev,
+                                                       q))
+        names = sorted({e.name[:60] for e in events})
+        log(f"  ei_update[k={k}]: median launch by q (1-4) {q_sweep}; "
+            f"launch floor {floor:.5f} ms; one core.gddim._update call on "
+            f"{name}'s eps rows: {n_ev} device events, {call_ms} ms of "
+            f"device time; {names}")
+        check(n_ev == 1, f"[{name}] a core.gddim._update call runs {n_ev} "
+              "device kernels (want 1)")
+        records[-1].update(
+            launches_per_run=[r["counts"].get("ei_update", 0)
+                              for r in path_a[name][2]],
+            q_sweep_ms=q_sweep, launch_floor_ms=floor, call_events=n_ev,
+            call_ms=call_ms)
     for name, k in (("cifar10-cld", 2), ("cifar10-bdm", 1)):
         blk, diag, z, err = af[k]
         records.append(timed_record(

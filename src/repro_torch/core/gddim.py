@@ -11,7 +11,8 @@ is one linear form psi u + sum_j C_j eps_j with coefficients shared by the
 batch, and each such update is ONE kernel launch:
 
   * scalar / block families (VPSDE k = 1, CLD k = 2): the state is packed
-    to (B, k, D) and `kernels.ei_update.ops.ei_update` applies the form;
+    to (B, k, D) and `kernels.ei_update.ops.ei_update` applies the form,
+    reading the eps rows where they lie;
   * BDM (freq-diagonal coefficients): `kernels.dct2.ops.bdm_ei_update`
     applies it in the DCT basis, on the (B, H, W, C) state.
 
@@ -51,15 +52,18 @@ EpsFn = Callable[[Tensor, int], Tensor]
 def _update(sde: LinearSDE, u: Tensor, eps: Sequence[Tensor], psi: Tensor,
             C: Tensor) -> Tensor:
     """psi u + sum_j C[j] eps[j] for one coefficient set shared by the
-    batch: one `ei_update` launch on the packed state, or for BDM one
-    `bdm_ei_update` launch (psi and C then already on u's device)."""
+    batch: one `ei_update` launch on the packed state, which reads the eps
+    rows where they lie (packed views, no stack: the update is one device
+    kernel), or for BDM one `bdm_ei_update` launch on the stacked history
+    (psi and C then already on u's device)."""
     q = len(eps)
     if sde.ops.family == "freqdiag":
         return bdm_ei_update(u.contiguous(), torch.stack(list(eps)), psi, C)
     k = sde.packed_k
     z, shape = pack_state(u, k)
-    hist = torch.stack([e.reshape(z.shape) for e in eps])
-    out = ei_update(z.contiguous(), hist, psi.reshape(k, k),
+    # .contiguous() copies only a row that eps_fn returned strided
+    rows = [e.reshape(z.shape).contiguous() for e in eps]
+    out = ei_update(z.contiguous(), rows, psi.reshape(k, k),
                     C.reshape(q, k, k))
     return unpack_state(out, shape)
 

@@ -6,7 +6,8 @@ The q-step predictor update (paper Eq. 19a) for scalar/block families:
     u_next[c] = sum_c' Psi[c,c'] u[c'] + sum_j sum_c' C[j,c,c'] eps_hist[j,c']
 
 State layout: (B, k, D) with k the structural channel count (VPSDE: k=1,
-CLD: k=2) and D the flattened data dims.  eps_hist: (q, B, k, D).
+CLD: k=2) and D the flattened data dims.  eps_hist: a (q, B, k, D) tensor
+or a sequence of q (B, k, D) rows.
 Coefficients: psi (k, k); C (q, k, k).
 
 Both functions spell their sums out term by term, left to right, each term
@@ -16,17 +17,20 @@ so on the card they agree with these bit for bit.
 """
 from __future__ import annotations
 
+from typing import Sequence, Union
+
 import torch
 
 Tensor = torch.Tensor
 
 
-def ei_update_ref(u: Tensor, eps_hist: Tensor, psi: Tensor,
-                  C: Tensor) -> Tensor:
-    """u (B, k, D) f32 or bf16; eps_hist (q, B, k, D) of u's dtype; psi
-    (k, k), C (q, k, k).  Computed in f32, returned in u's dtype."""
+def ei_update_ref(u: Tensor, eps_hist: Union[Tensor, Sequence[Tensor]],
+                  psi: Tensor, C: Tensor) -> Tensor:
+    """u (B, k, D) f32 or bf16; eps_hist (q, B, k, D) of u's dtype, or a
+    sequence of q (B, k, D) rows; psi (k, k), C (q, k, k).  Computed in
+    f32, returned in u's dtype."""
     k = u.shape[1]
-    u32, e32 = u.float(), eps_hist.float()
+    u32, e32 = u.float(), [e.float() for e in eps_hist]
     psi = torch.as_tensor(psi, dtype=torch.float32, device=u.device)
     C = torch.as_tensor(C, dtype=torch.float32, device=u.device)
     rows = []
@@ -34,9 +38,9 @@ def ei_update_ref(u: Tensor, eps_hist: Tensor, psi: Tensor,
         row = psi[c, 0] * u32[:, 0]
         for c2 in range(1, k):
             row = row + psi[c, c2] * u32[:, c2]
-        for j in range(e32.shape[0]):
+        for j, e in enumerate(e32):
             for c2 in range(k):
-                row = row + C[j, c, c2] * e32[j, :, c2]
+                row = row + C[j, c, c2] * e[:, c2]
         rows.append(row)
     return torch.stack(rows, dim=1).to(u.dtype)
 

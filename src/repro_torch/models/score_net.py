@@ -146,11 +146,13 @@ class DiT(nn.Module):
         sh, sc = torch.chunk(mod, 2, dim=-1)
         h = _modulate(common.layer_norm(h, ones, zeros), sh, sc)
         out = h @ self.patch_out                               # (B, T, patch_dim)
-        # unpatchify
-        out = out.reshape(B, n_side, n_side, cm, P, P).permute(0, 3, 1, 4, 2, 5)
-        out = out.reshape(B, cm, cfg.img_size, cfg.img_size)
+        # unpatchify straight into u's layout, so that eps comes out
+        # contiguous: the sampler hands its rows to ei_update by address
         if u.dim() == 5:
-            out = out.reshape(B, cfg.state_mult, cfg.channels, cfg.img_size,
-                              cfg.img_size)
-            return out.permute(0, 1, 3, 4, 2).to(u.dtype)
-        return out.permute(0, 2, 3, 1).to(u.dtype)
+            out = out.reshape(B, n_side, n_side, cfg.state_mult,
+                              cfg.channels, P, P).permute(0, 3, 1, 5, 2, 6, 4)
+        else:
+            out = out.reshape(B, n_side, n_side, cm, P, P).permute(
+                0, 1, 4, 2, 5, 3)
+        return out.reshape(u.shape).to(
+            u.dtype, memory_format=torch.contiguous_format)

@@ -34,7 +34,9 @@ Tiers (kernel vs plain version on the same card):
     itself at every cluster size;
   * ei_update (f32 and bf16) and apply_factored: BITWISE against the plain
     version (the same unfused products and left-to-right sums, one
-    rounding to bf16 at the end).
+    rounding to bf16 at the end); ei_update at q 0-4, the history stacked
+    or as separate rows, in the 16-byte and the scalar instance, a
+    misaligned row on the scalar one.
 """
 import pytest
 import torch
@@ -671,20 +673,97 @@ def test_both_libraries_build(dev):
     assert all("error" not in r for r in reports.values())
 
 
+@pytest.mark.parametrize("form", ["tensor", "list"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,k,D,q", [(64, 1, 3072, 2), (64, 2, 3072, 3),
-                                     (3, 2, 300, 4), (2, 1, 77, 0)])
-def test_ei_update_matches_plain_version(dev, B, k, D, q, dtype):
+@pytest.mark.parametrize("B,k,D", [(64, 1, 3072), (64, 2, 3072), (3, 2, 300),
+                                   (2, 1, 77)])
+@pytest.mark.parametrize("q", range(5))
+def test_ei_update_matches_plain_version(dev, B, k, D, q, dtype, form):
+    """q 0-4, the history stacked or as separate rows; D 3072 runs the
+    16-byte instance, D 300 it for f32 and the scalar one for bf16, D 77
+    the scalar one.  The scalar instance, and the 16-byte one where it fits
+    the shape, through the private override, are bitwise equal too."""
     g = torch.Generator().manual_seed(B + k + D + q)
     u = torch.randn(B, k, D, generator=g).to(dtype).to(dev)
     eps = torch.randn(q, B, k, D, generator=g).to(dtype).to(dev)
+    hist = eps if form == "tensor" else [eps[j].clone() for j in range(q)]
     psi, C = torch.randn(k, k, generator=g), torch.randn(q, k, k, generator=g)
+    v = 16 // u.element_size()
+    rows = ei_ops.history_rows(u, hist)
+    assert ei_ops.vector_elems(u, rows, u) == (1 if D % v else v)
     kc.reset_launches()
-    got = ei_ops.ei_update(u, eps, psi, C)
+    got = ei_ops.ei_update(u, hist, psi, C)
     want = ei_ref.ei_update_ref(u, eps, psi, C)
     torch.cuda.synchronize()
     assert kc.launches()["ei_update"] == 1 and got.dtype == dtype
     assert torch.equal(got, want)
+    for elems in (1, v):
+        if D % elems == 0:
+            out = ei_ops._ei_update(u, hist, psi, C, elems=elems)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), elems
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ei_update_misaligned_row_runs_scalar(dev, dtype):
+    """A row one element past a 16-byte boundary (contiguous, so the
+    wrapper takes it): the scalar instance runs, bitwise; the 16-byte one
+    is refused for it by the entry point."""
+    B, k, D, q = 64, 2, 3072, 2
+    g = torch.Generator().manual_seed(5)
+    u = torch.randn(B, k, D, generator=g).to(dtype).to(dev)
+    flat = torch.randn(B * k * D + 1, generator=g).to(dtype).to(dev)
+    rows = [torch.randn(B, k, D, generator=g).to(dtype).to(dev),
+            flat[1:].view(B, k, D)]
+    psi, C = torch.randn(k, k, generator=g), torch.randn(q, k, k, generator=g)
+    assert rows[1].data_ptr() % 16
+    assert ei_ops.vector_elems(u, rows, u) == 1
+    kc.reset_launches()
+    got = ei_ops.ei_update(u, rows, psi, C)
+    want = ei_ref.ei_update_ref(u, rows, psi, C)
+    torch.cuda.synchronize()
+    assert kc.launches()["ei_update"] == 1
+    assert torch.equal(got, want)
+    with pytest.raises(RuntimeError):
+        ei_ops._ei_update(u, rows, psi, C, elems=16 // u.element_size())
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_ei_update_any_block_size(dev, threads):
+    """The block-size override of the sweep: bitwise at 64, 128 and 256
+    threads a block, ragged edge included (D / 4 = 770 d groups)."""
+    B, k, D, q = 64, 1, 3080, 3
+    g = torch.Generator().manual_seed(threads)
+    u = torch.randn(B, k, D, generator=g).to(dev)
+    rows = [torch.randn(B, k, D, generator=g).to(dev) for _ in range(q)]
+    psi, C = torch.randn(k, k, generator=g), torch.randn(q, k, k, generator=g)
+    want = ei_ref.ei_update_ref(u, rows, psi, C)
+    for elems in (1, 4):
+        got = ei_ops._ei_update(u, rows, psi, C, elems=elems,
+                                threads=threads)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), elems
+
+
+@pytest.mark.parametrize("elems", [1, 4])
+def test_ei_update_batch_past_grid_y_limit(dev, elems):
+    """The batch sits on grid.x, so B = 65536 (one past grid.y's limit)
+    runs, bitwise, in both instances; the d blocks sit on grid.y, and more
+    than 65535 of them are refused."""
+    B, k, D, q = 65536, 2, 8, 2
+    g = torch.Generator().manual_seed(elems)
+    u = torch.randn(B, k, D, generator=g).to(dev)
+    rows = [torch.randn(B, k, D, generator=g).to(dev) for _ in range(q)]
+    psi, C = torch.randn(k, k, generator=g), torch.randn(q, k, k, generator=g)
+    got = ei_ops._ei_update(u, rows, psi, C, elems=elems)
+    want = ei_ref.ei_update_ref(u, rows, psi, C)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    D = 65536 * 32 * elems
+    u = torch.zeros(1, 1, D, device=dev)
+    with pytest.raises(RuntimeError):
+        ei_ops._ei_update(u, [], torch.eye(1), torch.zeros(0, 1, 1),
+                          elems=elems, threads=32)
 
 
 @pytest.mark.parametrize("B,k,D", [(4, 1, 3072), (4, 2, 3072), (3, 2, 300),

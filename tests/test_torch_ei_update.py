@@ -61,9 +61,13 @@ def _jax(t: torch.Tensor, dtype: str):
     return jnp.asarray(t.float().numpy()).astype(DTYPES[dtype][2])
 
 
-def _ei_check(B, k, D, q, dtype, pallas: bool):
+def _ei_check(B, k, D, q, dtype, pallas: bool, form: str = "tensor"):
+    """The port's ei_update with the history as one (q, B, k, D) tensor or
+    as a list of q separate (B, k, D) rows, against the JAX reference (and
+    the Pallas kernel) on the stacked JAX array."""
     u, eh, psi, C = _ei_inputs(B, k, D, q, dtype)
-    got = tops.ei_update(u, eh, torch.from_numpy(psi), torch.from_numpy(C))
+    hist = eh if form == "tensor" else [eh[j].clone() for j in range(q)]
+    got = tops.ei_update(u, hist, torch.from_numpy(psi), torch.from_numpy(C))
     assert got.dtype == u.dtype and got.shape == (B, k, D)
     ju, jeh = _jax(u, dtype), _jax(eh, dtype)
     want = jei_ref(ju, jeh, jnp.asarray(psi), jnp.asarray(C))
@@ -85,6 +89,100 @@ def test_ei_update_matches_jax_ref(B, k, D, q, dtype):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_ei_update_matches_pallas_interpret(dtype):
     _ei_check(3, 2, 300, 2, dtype, pallas=True)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,k,D,q", EI_CASES)
+def test_ei_update_rows_match_jax_ref(B, k, D, q, dtype):
+    """The history as a list of rows, as the sampler passes it."""
+    _ei_check(B, k, D, q, dtype, pallas=False, form="list")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ei_update_rows_match_pallas_interpret(dtype):
+    _ei_check(3, 2, 300, 2, dtype, pallas=True, form="list")
+
+
+def _bad_history(fault: str, form: str, B=2, k=2, D=16, q=2):
+    """A history that the wrapper must refuse: one row strided, of another
+    dtype or of another shape; as a tensor or as a list of rows."""
+    if fault == "strided":
+        wide = torch.zeros(q, B, k, 2 * D)
+        return wide[..., ::2] if form == "tensor" else list(wide[..., ::2])
+    if fault == "dtype":
+        eh = torch.zeros(q, B, k, D, dtype=torch.float64)
+        return eh if form == "tensor" else [torch.zeros(B, k, D),
+                                            eh[1]]
+    eh = torch.zeros(q, B, k, D + 1)
+    return eh if form == "tensor" else [torch.zeros(B, k, D), eh[1]]
+
+
+@pytest.mark.parametrize("form", ["tensor", "list"])
+@pytest.mark.parametrize("fault,exc", [("strided", ValueError),
+                                       ("dtype", TypeError),
+                                       ("shape", ValueError)])
+def test_ei_update_refuses_bad_rows(fault, exc, form):
+    """Rows go to the kernel by address, so the wrapper refuses a strided
+    row, a row of another dtype and a row of another shape (the same check
+    runs before the plain version on the CPU)."""
+    u = torch.zeros(2, 2, 16)
+    with pytest.raises(exc):
+        tops.ei_update(u, _bad_history(fault, form), torch.eye(2),
+                       torch.zeros(2, 2, 2))
+    with pytest.raises(ValueError):                      # q = 5 > 4
+        tops.ei_update(u, [torch.zeros(2, 2, 16)] * 5, torch.eye(2),
+                       torch.zeros(5, 2, 2))
+
+
+@pytest.mark.parametrize("source", ["randn", "net"])
+@pytest.mark.parametrize("name", ["cifar10-ddpm", "cifar10-cld"])
+def test_gddim_update_passes_the_rows_uncopied(name, source, monkeypatch):
+    """`core.gddim._update` on VPSDE and CLD hands ei_update the sampler's
+    eps tensors themselves (packed views sharing their storage, no stack),
+    with the stacked call's result bitwise: on random rows and on path A's
+    rows, the score net's outputs (the DiT returns them contiguous, in the
+    state's layout).  A strided eps is made contiguous first, with the same
+    result."""
+    from repro_torch.configs import get_diffusion
+    from repro_torch.core import gddim, time_grid
+    spec = get_diffusion(name, reduced=True)
+    sde, k, q = spec.sde, spec.sde.packed_k, 2
+    g = torch.Generator().manual_seed(k)
+    shape = (3,) + sde.state_shape(spec.data_shape)
+    u = torch.randn(shape, generator=g)
+    if source == "net":
+        net = spec.init(seed=0, device="cpu")
+        with torch.no_grad():
+            net.patch_out.normal_(generator=g)   # zero-init: eps would be 0
+            eps_fn = spec.make_eps_fn(net, time_grid(sde, 4))
+            eps = [eps_fn(u, i) for i in (1, 2)]
+        assert float(eps[0].abs().max()) > 0.1
+    else:
+        eps = [torch.randn(shape, generator=g) for _ in range(q)]
+    assert all(e.is_contiguous() and e.shape == shape for e in eps)
+    psi, C = torch.randn(k, k, generator=g), torch.randn(q, k, k, generator=g)
+    seen = []
+
+    def spy(z, rows, psi_, C_):
+        seen.append(rows)
+        return tops.ei_update(z, rows, psi_, C_)
+
+    monkeypatch.setattr(gddim, "ei_update", spy)
+    z, _ = tops.pack_state(u, k)
+
+    def stacked(rows):
+        return tops.unpack_state(tops.ei_update(z, torch.stack(
+            [e.reshape(z.shape) for e in rows]), psi, C), shape)
+
+    got = gddim._update(sde, u, eps, psi, C)
+    assert isinstance(seen[0], list) and len(seen[0]) == q
+    assert [r.data_ptr() for r in seen[0]] == [e.data_ptr() for e in eps]
+    assert torch.equal(got, stacked(eps))
+    strided = [eps[0], torch.randn(shape[::-1], generator=g).permute(
+        *range(len(shape) - 1, -1, -1))]
+    assert not strided[1].is_contiguous()
+    assert torch.equal(gddim._update(sde, u, strided, psi, C),
+                       stacked(strided))
 
 
 def _af_inputs(B, k, D, seed=11):
