@@ -59,10 +59,25 @@ its records carry the sweep over cluster sizes and its
 FMA floor beside the byte bound; the launch floor (PyTorch's fill of a
 one-element tensor, timed once) rides on the apply_factored and
 bdm_ei_update records; CLD on the exact score of a four-mode 2-D mixture
-checks sampling quality with no trained weights; and the reduced configs
-on the card are checked against the plain versions on the CPU (engine
-samples, path A samples; gemma3-1b's logits and token streams).  It
-prints:
+checks sampling quality with no trained weights.  Then the training
+path, "train + likelihood": the DiT attention's gradient (the forward
+kernel inside an autograd Function, the plain backward) against autograd
+through the plain version at the training shape (32, 256, 12, 64) bf16,
+the forward output gated too; the training entry point
+`launch.train.train_diffusion` on full-width `cifar10-cld` (bf16, remat
+on: 48 flash_attention launches a step, checked) for 40 steps at batch
+32, with samples/s, one traced step's device share and peak memory; the
+same entry point preempted at step 20 (its checkpoint saved async), then
+resumed (the restored bf16 leaves byte for byte) to step 40 against the
+uninterrupted run (bitwise, or within the spread of two uninterrupted
+runs, printed); 3 reduced steps card vs CPU; the VPSDE exact-score
+likelihood against its closed form and the CLD NLL bound (Hutchinson)
+through the trained DiT; 64 samples from the trained net, and the
+hand-off from the loss to the sampler witnessed by the training data's
+exact eps (its loss against the trained net's, zero's and its
+negation's; its samples on the data's modes).  Last, the reduced configs
+on the card are checked against the plain versions on the CPU (engine samples, path A samples;
+gemma3-1b's logits and token streams).  It prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -73,6 +88,7 @@ device, or outside a checkout, it fails.  Needs one card.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -1662,6 +1678,403 @@ def reduced_lm_check():
           f"reduced {LM_ARCH}: token streams on the card differ from the CPU")
 
 
+# ---- train + likelihood: the diffusion training path at full width -----------
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE, TRAIN_WARM, TRAIN_LR = 32, 40, 20, 5, 3e-4
+NLL_BATCH, NLL_STEPS = 4, 20
+
+
+def attention_grad_check(cfg, gen, dev):
+    """The DiT attention at the training shape (TRAIN_BATCH, 256, 12, 64)
+    bf16: the autograd Function's output (the forward kernel) and its
+    gradient (the plain backward `attention_bwd_ref` from the saved q, k,
+    v, which recomputes P and so never reads the kernel's output) against
+    torch autograd through the plain version in f32 on the same values.
+    Tolerance: 2 bf16 ulp of the output and of each gradient at max(|g|,
+    max|g| / 1024) (each computes in f32 and rounds once).  Times (device
+    ms): the forward kernel, the
+    plain backward, the Function's forward + backward, and autograd
+    through the plain version (forward + backward, f32).  Returns the bf16
+    (q, k, v) and the forward's max abs err against the plain forward."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                                   attention_ref)
+    H, S, Dh = cfg.n_heads, cfg.n_tokens, cfg.d_head
+    rnd = lambda: torch.randn(TRAIN_BATCH, S, H, Dh, generator=gen,
+                              device=dev).to(torch.bfloat16)
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attn_ops.attention(*leaves, causal=False)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_leaves, causal=False)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    torch.cuda.synchronize()
+    err_fwd = max_err(out.detach(), ref_out.detach())
+    ulp_fwd = ulp_err(out.detach(), ref_out.detach().to(torch.bfloat16))
+    log(f"[train] attention output at {tuple(q.shape)} bf16, the forward "
+        f"kernel vs the plain version in f32: max {ulp_fwd:.2f} bf16 ulp "
+        f"(tol 2), max abs err {err_fwd:.3e} at max|o| "
+        f"{float(ref_out.detach().abs().max()):.3e}")
+    check(bool(torch.isfinite(out).all()) and ulp_fwd <= 2,
+          "[train] flash_attention beyond tolerance at the training shape")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ulps, scale = ulp_err(a, b.to(torch.bfloat16)), float(b.abs().max())
+        log(f"[train] attention gradient {name} at {tuple(q.shape)} bf16, "
+            f"Function vs autograd of the plain version in f32: max "
+            f"{ulps:.2f} bf16 ulp (tol 2), max abs err / max|g| "
+            f"{max_err(a, b) / scale:.3e}, max|g| {scale:.3e}")
+        check(bool(torch.isfinite(a).all()) and ulps <= 2,
+              f"[train] attention gradient {name} beyond tolerance")
+    fwd_ms = time_ms(lambda: attn_ops.flash_attention(q, k, v),
+                     kernel="flash_dit_wgmma_kernel<64")[0]
+    bwd_ms = time_ms(lambda: attention_bwd_ref(q, k, v, do), 20)[0]
+    fn_ms = time_ms(lambda: torch.autograd.grad(
+        attn_ops.attention(*leaves, causal=False), leaves, do), 20)[0]
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        attention_ref(*ref_leaves, causal=False), ref_leaves, do.float()),
+        20)[0]
+    log(f"[train] attention at {tuple(q.shape)}: forward kernel {fwd_ms:.5f}"
+        f" ms; plain backward {bwd_ms:.5f} ms; Function forward + backward "
+        f"{fn_ms:.5f} ms; autograd through the plain version (f32) forward "
+        f"+ backward {plain_ms:.5f} ms (device ms)")
+    return q, k, v, err_fwd
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(a.parameters(), b.parameters()))
+
+
+def train_args(spec, **kw) -> argparse.Namespace:
+    """`launch.train`'s command line for the phase's runs of `spec`."""
+    return argparse.Namespace(**{**dict(
+        diffusion=spec.name, reduced=False, steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED, ckpt_dir=None,
+        ckpt_every=0, resume=False, log_every=0, device="cuda"), **kw})
+
+
+def train_phase(spec, dev, card, gen):
+    """Diffusion training at full width (`spec`: cifar10-cld, DiT 24 x 768,
+    bf16, remat on) through the entry point `train_diffusion`, random
+    weights from SEED: TRAIN_STEPS steps at batch TRAIN_BATCH (AdamW lr
+    3e-4, warmup 5, no weight decay; the seeded mixture pipeline), each
+    timed by its `on_step` call with the card synchronized; the same run
+    preempted at TRAIN_SAVE with its checkpoint, then resumed to the end
+    against the uninterrupted run; the same steps on the reduced config
+    card vs CPU; the likelihood (VPSDE exact score against the closed
+    form, the CLD NLL bound through the trained DiT); samples from the
+    trained net and the hand-off witness.  Returns the kernels-line record
+    of the training shape's flash_attention."""
+    import shutil
+    from repro_torch import random as prng
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.launch.train import diffusion_pipeline, train_diffusion
+    t_phase = time.perf_counter()
+    q, k, v, err_fwd = attention_grad_check(spec.score_cfg, gen, dev)
+    pipe = diffusion_pipeline(spec, TRAIN_BATCH, SEED)
+    spec.tables_on(dev)                          # Stage I, before the clock
+
+    clock, metrics, resident = [], [], []
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    def watch(step, net, st, m):
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        if m is None:
+            resident.append(torch.cuda.memory_allocated() / 2 ** 30)
+        else:
+            metrics.append(m)
+        if step == TRAIN_STEPS - 1:
+            prof.start()
+        elif step == TRAIN_STEPS:
+            prof.stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    run = train_diffusion(train_args(spec), spec=spec, on_step=watch)
+    counts = kc.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    net = run["net"]
+    n_params = sum(p.numel() for p in net.parameters())
+    n_layers = spec.score_cfg.n_layers
+    flash_train = counts.get("flash_attention", 0)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    log(f"[train] train_diffusion, cifar10-cld full width ({n_params} "
+        f"params, bf16, remat {spec.score_cfg.remat}), batch {TRAIN_BATCH}, "
+        f"{len(losses)} steps: launches {counts} ({2 * n_layers} "
+        f"flash_attention a step expected: forward and remat recompute per "
+        f"layer)")
+    check(run["step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses + gnorms),
+          "[train] a loss or grad norm is not finite, or steps are missing")
+    check(flash_train == 2 * n_layers * TRAIN_STEPS,
+          f"[train] {flash_train} flash_attention launches, expected "
+          f"{2 * n_layers * TRAIN_STEPS}")
+    durs = np.diff(clock)                        # step i: durs[i]
+    timed = durs[TRAIN_WARM:TRAIN_STEPS - 1]
+    busy = sum(e.time_range.elapsed_us() for e in kernel_events(prof)) / 1e6
+    wall = durs[-1]
+    log(f"[train] loss {losses[0]:.5f} -> {losses[-1]:.5f} (every 5th: "
+        f"{[round(x, 5) for x in losses[::5]]}); grad norm {gnorms[0]:.4f} "
+        f"-> {gnorms[-1]:.4f}; {TRAIN_BATCH * len(timed) / sum(timed):.3f} "
+        f"samples/s over steps {TRAIN_WARM}-{TRAIN_STEPS - 2} (median step "
+        f"{1e3 * float(np.median(timed)):.3f} ms); one traced step: wall "
+        f"{1e3 * wall:.3f} ms, device busy {1e3 * busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% "
+        f"idle), {len(kernel_events(prof))} device events; peak memory "
+        f"{peak:.3f} GiB allocated ({resident[0]:.3f} GiB at step 0, the "
+        f"earlier phases' nets and the fresh train state included) ({card})")
+    top = {}
+    for e in kernel_events(prof):
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
+    (ROOT / "chiprun_out" / "train_profile.txt").write_text("".join(
+        f"{us:.1f}\t{name}\n" for name, us in sorted(top.items(),
+                                                     key=lambda kv: -kv[1])))
+
+    # ---- preempted at TRAIN_SAVE, resumed to the end ------------------------
+    ckdir = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cut = train_diffusion(
+        train_args(spec, ckpt_dir=str(ckdir), ckpt_every=TRAIN_SAVE),
+        spec=spec, on_step=lambda step, *_: step >= TRAIN_SAVE)
+    t_cut = time.perf_counter() - t0
+    check(cut["step"] == TRAIN_SAVE, f"[train] the preempted run stopped at "
+          f"step {cut['step']}")
+    size = sum(f.stat().st_size for f in ckdir.rglob("*.npz")) / 2 ** 30
+    restored, resumed_m = {}, []
+
+    def first(step, net_r, st, m):
+        if m is not None:
+            resumed_m.append(m)
+            return
+        torch.cuda.synchronize()
+        restored.update(step=step, opt_step=int(st.step),
+                        t=time.perf_counter(), same=all(
+                            a.dtype == torch.bfloat16 and torch.equal(
+                                a.detach().view(torch.int16),
+                                b.detach().view(torch.int16))
+                            for a, b in zip(net_r.parameters(),
+                                            cut["net"].parameters())))
+
+    t0 = time.perf_counter()
+    res = train_diffusion(train_args(spec, ckpt_dir=str(ckdir), resume=True),
+                          spec=spec, on_step=first)
+    t_res = time.perf_counter() - t0
+    check(restored.get("step") == TRAIN_SAVE
+          and restored["opt_step"] == TRAIN_SAVE, f"[train] resumed at step "
+          f"{restored.get('step')}, optimizer step {restored.get('opt_step')}")
+    check(restored["same"], f"[train] the step-{TRAIN_SAVE} checkpoint's "
+          "bf16 leaves did not restore byte for byte")
+    losses_b = [float(m["loss"]) for m in resumed_m]
+    diff = max_param_diff(net, res["net"])
+    log(f"[train] preempted at step {TRAIN_SAVE} ({t_cut:.2f}s, its "
+        f"checkpoint {size:.3f} GiB written async and joined), resumed "
+        f"(fresh net, restore: {restored['t'] - t0:.2f}s to the first step) "
+        f"to step {res['step']} ({t_res:.2f}s, the end's checkpoint "
+        f"included); bf16 leaves restored byte for byte; resumed run's last "
+        f"loss {losses_b[-1]:.6f} vs {losses[-1]:.6f}, max |params - "
+        f"uninterrupted| {diff:.3e}")
+    if diff == 0.0 and losses_b == losses[TRAIN_SAVE:]:
+        log("[train] resume: bitwise equal to the uninterrupted run")
+    else:
+        again = train_diffusion(train_args(spec), spec=spec)["net"]
+        spread = max_param_diff(net, again)
+        log(f"[train] resume not bitwise: two uninterrupted runs differ by "
+            f"{spread:.3e} (the card's run-to-run spread), the resumed run "
+            f"by {diff:.3e}")
+        check(diff <= spread, "[train] the resumed run differs from the "
+              "uninterrupted one by more than two uninterrupted runs do")
+        del again
+    shutil.rmtree(ckdir, ignore_errors=True)
+    del cut, res
+
+    reduced_train_check(spec)
+    likelihood_checks(spec, net, pipe, dev, card)
+    kc.reset_launches()
+    x = spec.sample(net, prng.PRNGKey(SEED + 7, dev), A_N, 10, q=2,
+                    device=dev)
+    torch.cuda.synchronize()
+    s_counts = kc.launches()
+    check(tuple(x.shape) == (A_N,) + DATA and bool(torch.isfinite(x).all()),
+          "[train] samples from the trained net are not finite or well "
+          "formed")
+    check(s_counts.get("ei_update", 0) == 10 and s_counts.get(
+        "flash_attention", 0) == 10 * n_layers, f"[train] sampling from the "
+          f"trained net launched {s_counts}")
+    log(f"[train] {A_N} samples from the trained net (nfe 10, q 2): shape "
+        f"{tuple(x.shape)}, finite; launches {s_counts}")
+    handoff_check(spec, net, pipe, x, losses[0], dev)
+    log(f"[train] phase {time.perf_counter() - t_phase:.2f}s")
+    return attention_timed(
+        "flash_attention[train]", "train (cifar10-cld, batch 32)", q, k, v,
+        flash_train, err_fwd)
+
+
+def zero_eps_std(sde, nfe: int) -> float:
+    """The std of the data part of Psi(t_min, T) u_T, u_T ~ N(0, Sigma_T):
+    what the sampler returns for eps = 0, in closed form (float64)."""
+    from repro_torch.core import time_grid
+    ts = time_grid(sde, nfe, "quadratic")
+    psi = np.asarray(sde.Psi_np(ts[0], ts[-1]), np.float64)
+    cov = psi @ np.asarray(sde.Sigma_np(ts[-1]), np.float64) @ psi.T
+    return float(np.sqrt(cov[0, 0]))
+
+
+@torch.no_grad()
+def handoff_check(spec, net, pipe, x, first_loss, dev) -> None:
+    """Whether the trained net's samples reflect the loss and the sampler
+    reading eps alike, on the training data's own mixture, whose exact eps
+    (`ExactScore.eps_model`, -K_t^T score) is known.  On step 0's batch
+    and key: the exact eps scores the loss's floor, below the trained
+    net's, the zero eps's (= the zero-init net's step-0 loss, checked to
+    1e-6) and its negation's (1 + 3 E|eps*|^2).  Through
+    `DiffusionSpec.sample` (A_N samples, nfe 10, q 2) the exact eps puts
+    every sample within the data's mode std (0.05, rms a coordinate) of a
+    mode, all four taken.  The trained samples' std is printed against
+    S0, the eps = 0 level (CLD's flow run backward amplifies by Psi(t_min,
+    T), entries ~5e4), and bounded by 2 S0; the trained eps's error
+    against the exact one at the sampler's first time is printed."""
+    from repro_torch import random as prng
+    from repro_torch.sde import ExactScore, GaussianMixture
+    exact = ExactScore(spec.sde, GaussianMixture(
+        pipe.means, pipe.stds, pipe.weights)).eps_model()
+    x0 = torch.from_numpy(pipe.batch_at(0)).to(dev)
+    key = prng.fold_in(prng.PRNGKey(SEED, dev), 0)
+    loss = {name: float(spec.loss(fn, x0, key)) for name, fn in (
+        ("exact", exact), ("trained", net),
+        ("zero", lambda u, t: torch.zeros_like(u)),
+        ("negated", lambda u, t: -exact(u, t)))}
+    y = spec.sample(exact, prng.PRNGKey(SEED + 7, dev), A_N, 10, q=2,
+                    device=dev).cpu().numpy()
+    means = np.asarray(pipe.means, np.float32).reshape(len(pipe.means), -1)
+    rms = np.sqrt(((y.reshape(A_N, 1, -1) - means[None]) ** 2).mean(-1))
+    u_T = spec.sde.prior_sample(prng.PRNGKey(SEED + 8, dev), A_N, DATA)
+    t_T = torch.full((A_N,), float(spec.sde.T), device=dev)
+    e_star = exact(u_T, t_T)
+    rel = float((net(u_T, t_T).float() - e_star).norm() / e_star.norm())
+    s0, std = zero_eps_std(spec.sde, 10), float(x.float().std())
+    log(f"[train] hand-off on step 0's batch and key: loss of the exact eps "
+        f"{loss['exact']:.5f}, the trained net {loss['trained']:.5f}, zero "
+        f"{loss['zero']:.5f} (step 0's {first_loss:.5f}), the negated exact"
+        f" eps {loss['negated']:.5f}; {A_N} samples of the exact eps "
+        f"(nfe 10, q 2): std {float(y.std()):.5f} (data "
+        f"{float(pipe.batch_at(0).std()):.5f}), rms to the nearest mode max "
+        f"{float(rms.min(1).max()):.5f} (tol 0.05), modes taken "
+        f"{np.bincount(rms.argmin(1), minlength=len(means)).tolist()}; the "
+        f"trained net's samples: std {std:.4f} against S0 {s0:.4f} (eps = 0;"
+        f" bound 2 S0), its eps at t = T off the exact one by {rel:.4f} "
+        f"(relative rms)")
+    check(abs(loss["zero"] - first_loss) <= 1e-6 and loss["exact"]
+          < loss["trained"] < loss["zero"] < loss["negated"],
+          f"[train] the loss does not rank the exact eps first: {loss}")
+    check(float(rms.min(1).max()) <= 0.05 and len(set(
+        rms.argmin(1).tolist())) == len(means), "[train] the exact eps's "
+          "samples are off the data's modes")
+    check(std <= 2 * s0, f"[train] trained samples' std {std:.1f} above "
+          f"2 S0 = {2 * s0:.1f}")
+
+
+def reduced_train_check(full_spec) -> None:
+    """Three training steps of reduced cifar10-cld (f32, remat off) on the
+    card and on the CPU from the same weights, batches and keys: losses
+    within 1e-4 relative; the params within 2 lr a step everywhere (a
+    gradient near 0 of another sign moves AdamW's early update by up to
+    2 lr) and within 1e-6 for 99% of them."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_diffusion
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import diffusion_opt_cfg, \
+        diffusion_pipeline
+    from repro_torch.optim.adamw import adamw_init
+    spec = dataclasses.replace(get_diffusion("cifar10-cld", reduced=True),
+                               sde=full_spec.sde)
+    cfg = diffusion_opt_cfg(TRAIN_LR, 3)
+    pipe = diffusion_pipeline(spec, 8, SEED)
+    step_fn = steps.make_diffusion_train_step(spec, cfg)
+    nets = {d: spec.init(seed=SEED, device=d).requires_grad_()
+            for d in ("cuda", "cpu")}
+    states = {d: adamw_init(n.parameters(), cfg) for d, n in nets.items()}
+    rel = []
+    for i in range(3):
+        x0 = torch.from_numpy(pipe.batch_at(i))
+        key = prng.fold_in(prng.PRNGKey(SEED), i)
+        m = {d: step_fn(n, states[d], {"x0": x0.to(d)}, key.to(d))
+             for d, n in nets.items()}
+        lc, lp = float(m["cuda"]["loss"]), float(m["cpu"]["loss"])
+        rel.append(abs(lc - lp) / abs(lp))
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().ravel()
+                       for a, b in zip(nets["cuda"].parameters(),
+                                       nets["cpu"].parameters())])
+    frac = float((diffs > 1e-6).float().mean())
+    log(f"reduced cifar10-cld training, 3 steps, card vs CPU: loss rel err "
+        f"{[f'{r:.2e}' for r in rel]} (tol 1e-4); params max abs diff "
+        f"{float(diffs.max()):.3e} (tol {2 * cfg.lr * 3:.1e}), share above "
+        f"1e-6 {frac:.2e} (tol 1e-2)")
+    check(max(rel) <= 1e-4 and float(diffs.max()) <= 2 * cfg.lr * 3
+          and frac <= 1e-2, "reduced training: the card disagrees with the "
+          "CPU")
+
+
+def likelihood_checks(spec, net, pipe, dev, card) -> None:
+    """The probability-flow likelihood on the card: the VPSDE exact-score
+    NLL of a single Gaussian (exact divergence, 150 Heun steps) against its
+    closed form at the JAX test's tolerance (rtol 1e-2, atol 5e-2); and the
+    CLD NLL bound (App. C.8) through the trained full-width DiT, Hutchinson
+    (one Rademacher probe a step, taken as (J^T eps) . eps through the
+    attention backward), batch NLL_BATCH, one velocity draw, NLL_STEPS
+    Heun steps, the score -K_t^{-T} eps_theta: finite, printed in bits per
+    dimension of the data as given (no dequantization)."""
+    from repro_torch import random as prng
+    from repro_torch.core.likelihood import cld_nll_bound, log_likelihood
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.sde import ExactScore, GaussianMixture, VPSDE
+    from repro_torch.train.losses import score_fn_from_model
+    vp = VPSDE()
+    oracle = ExactScore(vp, GaussianMixture(np.array([[0.2, -0.4]]),
+                                            np.array([0.3]), np.array([1.0])))
+    x = np.array([[0.2, -0.4], [0.5, 0.0], [-0.1, -0.7]], np.float32)
+    t0 = time.perf_counter()
+    ll = log_likelihood(vp, oracle.score, torch.from_numpy(x).to(dev),
+                        n_steps=150).cpu().numpy()
+    dt = time.perf_counter() - t0
+    a = vp.alpha(vp.t_min)
+    var = a * 0.3 ** 2 + (1 - a)
+    d = x - np.sqrt(a) * np.array([0.2, -0.4])
+    ref = -0.5 * (d ** 2).sum(-1) / var - np.log(2 * np.pi * var)
+    err = np.abs(ll - ref)
+    log(f"[likelihood] VPSDE Gaussian, exact score, exact divergence, 150 "
+        f"Heun steps on the card: log p {[round(float(y), 5) for y in ll]} "
+        f"vs closed form {[round(float(y), 5) for y in ref]}, max |err| "
+        f"{float(err.max()):.3e}"
+        f" (tol 5e-2 + 1e-2 |ref|); {dt:.2f}s")
+    check(bool(np.all(err <= 5e-2 + 1e-2 * np.abs(ref))),
+          "[likelihood] VPSDE flow NLL off its closed form")
+    x0 = torch.from_numpy(pipe.batch_at(10_000)[:NLL_BATCH]).to(dev)
+    score = score_fn_from_model(spec.sde, lambda u, t: net(u, t), spec.kt)
+    kc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bound = cld_nll_bound(spec.sde, score, x0, prng.PRNGKey(SEED + 3, dev),
+                          n_v=1, n_steps=NLL_STEPS, hutchinson=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    bpd = (-bound / (x0[0].numel() * math.log(2))).cpu().numpy()
+    log(f"[likelihood] CLD NLL bound through the trained DiT (Hutchinson, "
+        f"batch {NLL_BATCH}, n_v 1, {NLL_STEPS} Heun steps): log p(x0) >= "
+        f"{[round(float(y), 3) for y in bound.cpu()]} nats, "
+        f"{[round(float(y), 5) for y in bpd]} bits/dim; {dt:.3f}s ({card}); "
+        f"launches {counts}")
+    check(bool(torch.isfinite(bound).all()), "[likelihood] CLD NLL bound "
+          "not finite")
+    check(counts.get("flash_attention", 0) > 0, "[likelihood] the bound "
+          "did not run the attention kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1670,6 +2083,7 @@ def main() -> int:
     from repro_torch.kernels import cuda as kc
     from repro_torch.launch.serve import parse_sampler_spec
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1780,7 +2194,10 @@ def main() -> int:
     log(f"paths A and B, the ei_update records and the quality check: "
         f"{time.perf_counter() - t_new:.2f}s")
 
-    # ---- 6. reduced configs: the card vs the plain version on the CPU ----
+    # ---- 6. train + likelihood: the training path at full width ----------
+    records.append(train_phase(paths["cifar10-cld"][0], dev, card, gen))
+
+    # ---- 7. reduced configs: the card vs the plain version on the CPU ----
     for name in PATH_KERNELS:
         reduced_check(name, mix)
     for name in PATH_A:
@@ -1788,6 +2205,7 @@ def main() -> int:
                              if name == "cifar10-cld" else None)
     reduced_lm_check()
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(smi())
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ from ..train.diffusion import DiffusionSpec
 def make(reduced: bool = False, kt: str = "R") -> DiffusionSpec:
     if reduced:
         score = DiTCfg(img_size=8, channels=3, state_mult=2, patch=4,
-                       d_model=64, n_layers=2, n_heads=2)
+                       d_model=64, n_layers=2, n_heads=2, remat=False)
         shape = (8, 8, 3)
     else:
         score = DiTCfg(img_size=32, channels=3, state_mult=2, patch=2,

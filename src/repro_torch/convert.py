@@ -1,14 +1,23 @@
 """Carry weights from the JAX package's param trees into the port.
 
-Both functions take a JAX param tree whose leaves are numpy arrays
-(`jax.tree.map(np.asarray, params)` on the JAX side).  Dense weights keep
-their (d_in, d_out) orientation, which is the port's too.  This is the
-only way the two packages compute the same net.
+The `from_*` functions take a JAX param tree whose leaves are numpy
+arrays (`jax.tree.map(np.asarray, params)` on the JAX side).  Dense
+weights keep their (d_in, d_out) orientation, which is the port's too.
+This is the only way the two packages compute the same net.
 
-  * `from_jax_params(tree)` returns a `state_dict` for the DiT module:
-    nested dict keys are joined with '.', and the layer stack — one
-    leading L axis per leaf under "layers" — is unstacked into
-    "layers.<i>.…" entries.
+  * `from_jax_params(tree)` returns a `state_dict` for the DiT or the MLP
+    score net: nested dict keys and list indices are joined with '.'
+    ("blocks.<i>.…" for the MLP's list of blocks), and the DiT's layer
+    stack — one leading L axis per leaf under "layers" — is unstacked
+    into "layers.<i>.…" entries.
+  * `to_jax_params(state_dict)` is its inverse, as numpy arrays: the
+    layers stacked again, the blocks a list.  numpy has no bf16, so a bf16
+    tensor comes back as float32 holding the same values (cast it with
+    `.astype(jnp.bfloat16)` on the JAX side: exact).
+  * `jax_tree(named)` is the same layout over tensors, and
+    `train_state_tree(net, opt_state)` the (params, AdamWState) tree of a
+    net and its optimizer state as the JAX training loop checkpoints it;
+    `load_train_state` copies such a tree back in place.
   * `from_jax_transformer(tree, cfg)` returns the transformer's params:
     `embed`, `ln_f` (and `unembed` when untied) and `layers`, the list of
     per-layer dicts in the order the JAX forward runs them — for each
@@ -23,28 +32,111 @@ import numpy as np
 import torch
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
-    for name, val in tree.items():
-        key = f"{prefix}{name}"
-        if isinstance(val, Mapping):
-            out.update(_flatten(val, key + "."))
-        else:
-            out[key] = np.asarray(val)
-    return out
-
-
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> torch state_dict."""
-    sd: Dict[str, torch.Tensor] = {}
-    for key, arr in _flatten(tree).items():
-        if key.startswith("layers."):
+    return {k: _tensor(np.asarray(v)) for k, v in _unstack(tree).items()}
+
+
+def jax_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors named as in a state_dict -> the JAX package's param tree of
+    the same tensors: dotted names nest, numbered children become a list
+    ("blocks.<i>.…"), and the DiT's numbered "layers" are stacked along a
+    new leading axis (new tensors), as JAX holds them."""
+    tree: Dict[str, Any] = {}
+    for key, t in named.items():
+        *path, last = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = t
+    return _listify(tree)
+
+
+def _listify(node: Any, key: str = "") -> Any:
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v, k) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        items = [node[str(i)] for i in range(len(node))]
+        return _stack(items) if key == "layers" else items
+    return node
+
+
+def _stack(items: List[Any]) -> Any:
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return torch.stack(items)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state_dict (DiT or MLP) -> the JAX param tree as numpy
+    arrays (bf16 as float32 of the same values)."""
+    return _map(jax_tree(state_dict), _to_numpy)
+
+
+def train_state_tree(net: torch.nn.Module, opt_state) -> tuple:
+    """(params, AdamWState(step, m, v, master)) in the JAX package's tree
+    layout: the tree its training loop checkpoints.  `opt_state` is the
+    port's AdamW state over `list(net.parameters())`."""
+    from .optim.adamw import AdamWState
+    names = [n for n, _ in net.named_parameters()]
+    tree = lambda ts: jax_tree(dict(zip(names, ts)))
+    params = [p.detach() for p in net.parameters()]
+    return (tree(params),
+            AdamWState(step=opt_state.step, m=tree(opt_state.m),
+                       v=tree(opt_state.v), master=tree(opt_state.master)))
+
+
+def load_train_state(net: torch.nn.Module, opt_state, tree: tuple) -> None:
+    """Copy a (params, AdamWState) tree of `train_state_tree`'s layout (as
+    `CheckpointStore.restore` returns it) into `net` and `opt_state`, in
+    place."""
+    names = [n for n, _ in net.named_parameters()]
+    params, state = tree
+    with torch.no_grad():
+        opt_state.step.copy_(state.step)
+        for dest, sub in ((list(net.parameters()), params),
+                          (opt_state.m, state.m), (opt_state.v, state.v),
+                          (opt_state.master, state.master)):
+            src = _unstack(sub)
+            if sorted(src) != sorted(names):
+                raise ValueError("the train state's tree does not match the "
+                                 f"net: {sorted(set(src) ^ set(names))}")
+            for name, t in zip(names, dest):
+                t.copy_(src[name])
+
+
+def _unstack(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Inverse of `jax_tree` (tensor or numpy leaves): a state_dict's
+    names for a param tree's leaves, the "layers" stack sliced per layer."""
+    out: Dict[str, Any] = {}
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for name, val in items:
+        key = f"{prefix}{name}"
+        if isinstance(val, (Mapping, list, tuple)):
+            out.update(_unstack(val, key + "."))
+        elif key.startswith("layers."):
             rest = key[len("layers."):]
-            for i in range(arr.shape[0]):
-                sd[f"layers.{i}.{rest}"] = _tensor(arr[i])
+            for i in range(val.shape[0]):
+                out[f"layers.{i}.{rest}"] = val[i]
         else:
-            sd[key] = _tensor(arr)
-    return sd
+            out[key] = val
+    return out
 
 
 def _tree_tensors(tree: Any) -> Any:

@@ -4,7 +4,7 @@ from .coeffs import (SamplerCoeffs, SamplerConfig, CoeffCache, FactoredBank,
                      factor_coeff, build_sampler_coeffs, bucket_size,
                      time_grid, ALGORITHMS, ALG_GDDIM, ALG_GMM, ALG_ACCEL,
                      GMM_RHO, GMM_SCALE, GMM_C, GMM_SALT, effective_q,
-                     algorithm_coeff_stacks)
+                     algorithm_coeff_stacks, ddim_closed_form_check)
 from .gddim import (sample_gddim, sample_gddim_stochastic, sample_em,
                     sample_heun, sample_ancestral_bdm, sample_rk45_np)
 
@@ -13,7 +13,7 @@ __all__ = [
     "factor_coeff", "build_sampler_coeffs", "bucket_size", "time_grid",
     "ALGORITHMS", "ALG_GDDIM", "ALG_GMM", "ALG_ACCEL",
     "GMM_RHO", "GMM_SCALE", "GMM_C", "GMM_SALT",
-    "effective_q", "algorithm_coeff_stacks",
+    "effective_q", "algorithm_coeff_stacks", "ddim_closed_form_check",
     "sample_gddim", "sample_gddim_stochastic", "sample_em", "sample_heun",
     "sample_ancestral_bdm", "sample_rk45_np",
 ]

@@ -680,3 +680,18 @@ class CoeffCache:
         self._factored = FactoredBank(
             diag=put(pool), **{name: put(a) for name, a in H.items()})
         return self._factored
+
+
+def ddim_closed_form_check(sde, ts) -> np.ndarray:
+    """Closed-form deterministic-DDIM eps coefficient on VPSDE (paper Eq.
+    12): sqrt(1 - a_{t-1}) - sqrt(1 - a_t) sqrt(a_{t-1} / a_t), one per
+    step, newest time first; the quadrature path's pC[:, 0] must reproduce
+    it (Prop 2)."""
+    out = []
+    N = len(ts) - 1
+    for k in range(N):
+        i = N - k
+        t, s = float(ts[i]), float(ts[i - 1])
+        a_t, a_s = sde.alpha(t), sde.alpha(s)
+        out.append(np.sqrt(1 - a_s) - np.sqrt(1 - a_t) * np.sqrt(a_s / a_t))
+    return np.asarray(out)

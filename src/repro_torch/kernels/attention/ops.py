@@ -14,6 +14,14 @@ and `flash_lm_wgmma_kernel` at head width 64, 128 or 256;
 and f32, which runs on the CUDA cores (`flash_fwd_kernel`,
 `flash_lm_kernel`).  A CUDA call outside these forms raises: it is never
 sent to the plain version.
+
+Gradients: where grad mode is on and q, k or v requires a gradient, the
+DiT form runs as `DiTAttention`, an autograd Function whose forward is
+the kernel (the plain version on a CPU tensor) and whose backward is the
+plain `attention_bwd_ref` from the saved q, k, v, on either device (the
+JAX package's Pallas kernel has no backward to port).  With grad off the
+path is the forward alone, as before.  The causal form has no gradient
+yet: a CUDA call that needs one raises.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from typing import Optional, Union
 import torch
 
 from .. import cuda
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
 Tensor = torch.Tensor
 
@@ -106,18 +114,50 @@ def flash_attention_causal(q: Tensor, k: Tensor, v: Tensor, *,
     return out
 
 
+class DiTAttention(torch.autograd.Function):
+    """The DiT form with a gradient: the forward kernel (counted as
+    `flash_attention`; `attention_ref` for a CPU tensor) and the plain
+    backward `attention_bwd_ref`, recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+        ctx.save_for_backward(q, k, v)
+        if cuda.device_of(q) == "cpu":
+            return attention_ref(q, k, v, causal=False)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do: Tensor):
+        return attention_bwd_ref(*ctx.saved_tensors, do)
+
+
+def _dit_form(q: Tensor, k: Tensor, v: Tensor, causal: bool, window,
+              q_offset) -> bool:
+    return (not causal and window is None
+            and isinstance(q_offset, int) and q_offset == 0
+            and q.shape == k.shape and k.shape == v.shape)
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
               window: Optional[int] = None,
               q_offset: Union[int, Tensor] = 0) -> Tensor:
     """Multi-head attention, q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh)."""
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if needs_grad and _dit_form(q, k, v, causal, window, q_offset):
+        return DiTAttention.apply(q, k, v)
     if cuda.device_of(q) == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
+    if needs_grad:
+        raise NotImplementedError(
+            "flash_attention has a gradient in its DiT form only (non-causal, "
+            "no window, Hq == Hkv, Sq == Sk); the causal / window / GQA form "
+            "has none until LM training is ported")
     if causal:
         return flash_attention_causal(q, k, v, window=window,
                                       q_offset=q_offset)
-    if window is not None or not (isinstance(q_offset, int) and q_offset == 0) \
-            or q.shape != k.shape or k.shape != v.shape:
+    if not _dit_form(q, k, v, causal, window, q_offset):
         raise NotImplementedError(
             "the CUDA attention kernel covers the causal form (LM prefill) "
             "and the non-causal, window-free, Hq == Hkv, Sq == Sk form (the "

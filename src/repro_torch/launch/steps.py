@@ -1,4 +1,5 @@
-"""Step factories: the programs the serving engines run.
+"""Step factories: the programs the serving engines and the training loop
+run.
 
   make_prefill_step(arch, max_len)       batched prompt prefill -> (last
                                          position's logits, fresh caches)
@@ -21,10 +22,37 @@
       spec, fam)                         plus the retire masking — the
                                          independent composition the fused
                                          round step is held against
+  make_diffusion_train_step(spec, opt)   one DSM/HSM training step: loss,
+                                         gradient through the score net,
+                                         AdamW (clipping, f32 masters), all
+                                         in place
 """
 from __future__ import annotations
 
 import torch
+
+
+def make_diffusion_train_step(spec, opt_cfg):
+    """A step (net, opt_state, batch, key) -> {"loss", "lr", "grad_norm"}
+    (0-d device tensors) that takes the DSM/HSM loss of `net` on
+    batch["x0"] with the `random.PRNGKey` `key`, its gradient with respect
+    to `list(net.parameters())` (which must require grad:
+    `net.requires_grad_()`), and one AdamW update of the params and of
+    `opt_state` (an `optim.adamw.AdamWState` over the same list) in place,
+    as the JAX step returns them new."""
+    from ..optim.adamw import adamw_update
+    spec.tables                          # Stage I, on the host, once
+
+    def train_step(net, opt_state, batch, key):
+        params = list(net.parameters())
+        with torch.enable_grad():
+            loss = spec.loss(net, batch["x0"], key)
+            grads = torch.autograd.grad(loss, params)
+        metrics = adamw_update(grads, opt_state, params, opt_cfg)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    return train_step
 
 
 def make_prefill_step(arch, max_len: int):

@@ -1,7 +1,9 @@
 """Score networks: the DiT (patchified transformer with adaLN-zero time
-conditioning, Peebles & Xie 2023) for image-shaped states.
+conditioning, Peebles & Xie 2023) for image-shaped states, and the small
+residual MLP for low-dimensional toy data (the paper's mixture
+experiments).
 
-The net consumes the state u (CLD: (B, 2, H, W, C); otherwise (B, H, W, C))
+A net consumes the state u (CLD: (B, 2, H, W, C); otherwise (B, H, W, C))
 and a continuous time t (B,), and returns an eps prediction of u's shape —
 both channels for CLD, the paper's Eq. 80 parameterization.  The public
 layout is the JAX package's; the 24 layers that JAX stacks along a leading
@@ -10,16 +12,28 @@ axis are an `nn.ModuleList` here.  Weights are (d_in, d_out) and applied as
 without transposes.  The compute dtype is the config's (bf16 at full
 width): the input is cast to it after patchify and the norms compute in f32
 and cast back, where the JAX package casts.
+
+Weights are created with `requires_grad=False`, so serving builds no
+autograd graph; training turns gradients on with `net.requires_grad_()`.
+Under grad mode with `DiTCfg.remat` (the JAX default; full-width configs
+keep it, reduced ones turn it off) each DiT layer runs under
+`torch.utils.checkpoint` (non-reentrant), the counterpart of the JAX
+package's `jax.checkpoint(..., nothing_saveable)`: the layer's forward
+runs again in the backward pass, so a training step launches each
+layer's attention kernel twice.  With grad off the forward is the same
+ops as ever.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import common
 
@@ -47,6 +61,7 @@ class DiTCfg:
     n_layers: int = 12
     n_heads: int = 6
     dtype: Any = torch.float32
+    remat: bool = True
 
     @property
     def n_tokens(self) -> int:
@@ -64,6 +79,61 @@ class DiTCfg:
 def _param(t: Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
+
+# ---------------------------------------------------------------------------
+# Residual MLP (toy data)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MLPScoreCfg:
+    state_shape: Tuple[int, ...]       # per-example state shape, e.g. (2,) or (2, 2)
+    hidden: int = 256
+    n_blocks: int = 4
+    t_dim: int = 64
+    dtype: Any = torch.float32
+
+    @property
+    def state_dim(self) -> int:
+        return int(np.prod(self.state_shape))
+
+
+class MLPScore(nn.Module):
+    """The JAX package's residual MLP score net: [u, t-embedding] -> silu
+    dense -> blocks of h + dense(silu(dense([h, te]))) -> dense, reshaped
+    to u's shape.  `forward(u, t)` -> eps of u's shape."""
+
+    def __init__(self, cfg: MLPScoreCfg,
+                 gen: Optional[torch.Generator] = None, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        dt, H, T = cfg.dtype, cfg.hidden, cfg.t_dim
+        init = lambda a, b, s=None: _param(
+            common.dense_init(gen, a, b, dt, s, device))
+        zeros = lambda n: _param(torch.zeros(n, dtype=dt, device=device))
+        self.w_in = init(cfg.state_dim + T, H)
+        self.b_in = zeros(H)
+        self.w_out = init(H, cfg.state_dim, 1e-3)
+        self.b_out = zeros(cfg.state_dim)
+        self.blocks = nn.ModuleList(nn.ParameterDict({
+            "w1": init(H + T, H), "b1": zeros(H),
+            "w2": init(H, H), "b2": zeros(H)}) for _ in range(cfg.n_blocks))
+
+    def forward(self, u: Tensor, t: Tensor) -> Tensor:
+        B = u.shape[0]
+        te = timestep_embedding(t, self.cfg.t_dim).to(u.dtype)
+        h = torch.cat([u.reshape(B, -1), te], dim=-1)
+        h = F.silu(h @ self.w_in + self.b_in)
+        for blk in self.blocks:
+            z = torch.cat([h, te], dim=-1)
+            z = F.silu(z @ blk["w1"] + blk["b1"])
+            h = h + z @ blk["w2"] + blk["b2"]
+        out = h @ self.w_out + self.b_out
+        return out.reshape(u.shape)
+
+
+# ---------------------------------------------------------------------------
+# DiT (image-shaped states)
+# ---------------------------------------------------------------------------
 
 class _DiTLayer(nn.Module):
     def __init__(self, cfg: DiTCfg, gen: torch.Generator, device):
@@ -108,6 +178,19 @@ class DiT(nn.Module):
         self.patch_out = _param(torch.zeros(d, cfg.patch_dim, dtype=dt,
                                             device=device))
 
+    def _layer(self, lp: _DiTLayer, h: Tensor, te_act: Tensor, ones: Tensor,
+               zeros: Tensor) -> Tensor:
+        cfg = self.cfg
+        mod = te_act @ lp.ada_w + lp.ada_b
+        sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+        z = _modulate(common.layer_norm(h, ones, zeros), sh1, sc1)
+        a, _ = common.attn_apply(lp.attn, z, n_heads=cfg.n_heads,
+                                 n_kv=cfg.n_heads, d_head=cfg.d_head,
+                                 causal=False)
+        h = h + g1[:, None] * a
+        z = _modulate(common.layer_norm(h, ones, zeros), sh2, sc2)
+        return h + g2[:, None] * common.mlp_apply(lp.mlp, z, act="gelu")
+
     def forward(self, u: Tensor, t: Tensor) -> Tensor:
         cfg = self.cfg
         B = u.shape[0]
@@ -131,16 +214,13 @@ class DiT(nn.Module):
         d = h.shape[-1]
         ones = torch.ones(d, dtype=cfg.dtype, device=h.device)
         zeros = torch.zeros(d, dtype=cfg.dtype, device=h.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for lp in self.layers:
-            mod = te_act @ lp.ada_w + lp.ada_b
-            sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
-            z = _modulate(common.layer_norm(h, ones, zeros), sh1, sc1)
-            a, _ = common.attn_apply(lp.attn, z, n_heads=cfg.n_heads,
-                                     n_kv=cfg.n_heads, d_head=cfg.d_head,
-                                     causal=False)
-            h = h + g1[:, None] * a
-            z = _modulate(common.layer_norm(h, ones, zeros), sh2, sc2)
-            h = h + g2[:, None] * common.mlp_apply(lp.mlp, z, act="gelu")
+            if remat:
+                h = checkpoint(self._layer, lp, h, te_act, ones, zeros,
+                               use_reentrant=False)
+            else:
+                h = self._layer(lp, h, te_act, ones, zeros)
 
         mod = te_act @ self.final_ada_w + self.final_ada_b
         sh, sc = torch.chunk(mod, 2, dim=-1)

@@ -241,11 +241,26 @@ def bits_to_normal(bits: Tensor) -> Tensor:
     return SQRT2 * erf_inv(bits_to_uniform(bits))
 
 
-def uniform(key: Tensor, shape: Sequence[int]) -> Tensor:
-    """`jax.random.uniform(key, shape)` in f32, on [0, 1): the bits' 23
-    high mantissa bits under exponent 0, minus one."""
+def uniform(key: Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> Tensor:
+    """`jax.random.uniform(key, shape, minval=, maxval=)` in f32: the bits'
+    23 high mantissa bits under exponent 0, minus one, on [0, 1); then
+    max(minval, u * (maxval - minval) + minval) with the bounds in f32 and
+    the product and sum as one fused multiply-add, as XLA computes it.
+    With the default bounds that is u itself."""
     fb = (random_bits(key, shape) >> 9) | 0x3F800000
-    return fb.to(torch.int32).view(torch.float32) - 1.0
+    u = fb.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp_min(_fma32(u, float(hi - lo), float(lo)), float(lo))
+
+
+def rademacher(key: Tensor, shape: Sequence[int],
+               dtype: torch.dtype = torch.float32) -> Tensor:
+    """`jax.random.rademacher(key, shape, dtype)`: 2 * bernoulli(0.5) - 1,
+    the Bernoulli draw being uniform(key, shape) < 0.5."""
+    return (2 * (uniform(key, shape) < 0.5).to(torch.int32) - 1).to(dtype)
 
 
 def normal(key: Tensor, shape: Sequence[int],

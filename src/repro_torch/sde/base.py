@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -354,6 +354,26 @@ class LinearSDE:
             device=key.device)
         return self.apply(chol_T, eps)
 
+    def augment_data(self, x: Tensor, key: Tensor | None = None) -> Tensor:
+        """Lift data into SDE state space (identity except CLD)."""
+        return x
+
     def project_data(self, u: Tensor) -> Tensor:
         """Project SDE state back to data space (identity except CLD)."""
         return u
+
+    def perturb(self, key: Tensor, u0: Tensor, t,
+                K_np_fn: Callable[[float], np.ndarray]
+                ) -> Tuple[Tensor, Tensor]:
+        """Forward-perturb data: u_t = Psi(t, 0) u0 + K_t eps with eps
+        drawn from `key`; returns (u_t, eps).  `t` is one time for the
+        whole batch (a python float or 0-d tensor; the coefficients come
+        from the host); the losses gather per-example coefficients from
+        stacked tables instead (`train.losses`)."""
+        t = float(t)
+        psi = torch.as_tensor(np.asarray(self.Psi_np(t, 0.0)),
+                              dtype=u0.dtype, device=u0.device)
+        K = torch.as_tensor(np.asarray(K_np_fn(t)), dtype=u0.dtype,
+                            device=u0.device)
+        eps = self.noise_like(key, tuple(u0.shape), u0.dtype)
+        return self.apply(psi, u0) + self.apply(K, eps), eps

@@ -129,5 +129,16 @@ class CLD(LinearSDE):
         coeff = torch.as_tensor(coeff, dtype=u.dtype, device=u.device)
         return torch.einsum("bij,bj...->bi...", coeff, u)
 
+    def augment_data(self, x: Tensor, key: Tensor | None = None) -> Tensor:
+        """(B, *data) -> (B, 2, *data): v0 = 0 without a key (the training
+        loss's mean lift: Sigma_t carries the v0 noise), else v0 ~ N(0,
+        gamma M) drawn from `key` (HSM init)."""
+        if key is None:
+            v = torch.zeros_like(x)
+        else:
+            v_std = float(np.sqrt(self.gamma / self.M_inv))
+            v = v_std * self.noise_like(key, tuple(x.shape), x.dtype)
+        return torch.stack([x, v], dim=1)
+
     def project_data(self, u: Tensor) -> Tensor:
         return u[:, 0]

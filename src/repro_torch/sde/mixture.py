@@ -231,6 +231,21 @@ class ExactScore:
                              dtype=u.dtype, device=u.device)
         return -self.sde.apply(KT, self.score(u, t))
 
+    def eps_model(self, K_np_fn: Callable[[float], np.ndarray] | None = None
+                  ) -> Callable[[Tensor, Tensor], Tensor]:
+        """The exact epsilon in the score net's calling convention, model(u,
+        t) with a time per example (what `dsm_loss` and
+        `DiffusionSpec.sample` call): each example's epsilon at its own
+        time; one batched call where the times are equal."""
+        def model(u: Tensor, t: Tensor) -> Tensor:
+            ts = [float(s) for s in t.detach().cpu().tolist()]
+            if len(set(ts)) == 1:
+                return self.eps(u, ts[0], K_np_fn)
+            return torch.cat([self.eps(u[i:i + 1], s, K_np_fn)
+                              for i, s in enumerate(ts)])
+
+        return model
+
     def eps_fn_for_grid(self, ts: Sequence[float],
                         K_np_fn: Callable[[float], np.ndarray] | None = None):
         """Build eps(u, i) for a static time grid, every constant computed

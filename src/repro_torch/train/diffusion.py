@@ -1,20 +1,20 @@
 """DiffusionSpec: binds (SDE family, score network, K_t choice) into the
-surface the serving engine uses.
+surface the serving engine and the training loop use.
 
-    init(seed, device)             -> the score net (an nn.Module), weights
-                                      drawn from a torch.Generator seeded
-                                      with `seed`
+    init(seed, device)             -> the score net (an nn.Module: the DiT
+                                      or the MLP), weights drawn from a
+                                      torch.Generator seeded with `seed`
     eps_model(net, u, t)           -> eps prediction of u's shape
+    tables                         -> the DSM perturbation tables (host
+                                      float64 cast to f32, built once)
+    loss(net, x0, key)             -> the DSM/HSM scalar (paper Eq. 5/77)
     sample(net, key, n, nfe, ...)  -> n samples from the lockstep gDDIM
                                       sampler (or an EM / Heun baseline)
-
-The losses, perturbation tables and the training step belong to a later
-slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,20 +33,49 @@ class DiffusionSpec:
     name: str
     sde: LinearSDE
     data_shape: Tuple[int, ...]
-    score_family: str               # "dit"
+    score_family: str               # "mlp" | "dit"
     score_cfg: Any
     kt: str = "R"                   # the gDDIM choice; "L" = Dockhorn baseline
+    _tables: Dict[str, losses.PerturbTables] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def init(self, seed: int = 0, device="cuda") -> torch.nn.Module:
-        if self.score_family != "dit":
-            raise ValueError(f"score family {self.score_family!r} is not "
-                             "ported")
         gen = torch.Generator().manual_seed(int(seed))
-        return score_net.DiT(self.score_cfg, gen, device=device).eval()
+        if self.score_family == "mlp":
+            net = score_net.MLPScore(self.score_cfg, gen, device=device)
+        elif self.score_family == "dit":
+            net = score_net.DiT(self.score_cfg, gen, device=device)
+        else:
+            raise ValueError(f"unknown score family {self.score_family!r}")
+        return net.eval()
 
     def eps_model(self, net: torch.nn.Module, u: torch.Tensor,
                   t: torch.Tensor) -> torch.Tensor:
         return net(u, t)
+
+    # ---- training ---------------------------------------------------------------
+    @property
+    def tables(self) -> losses.PerturbTables:
+        """The perturbation tables as CPU tensors (built on first use)."""
+        return self.tables_on("cpu")
+
+    def tables_on(self, device) -> losses.PerturbTables:
+        """The perturbation tables on `device`, one copy per device."""
+        name = str(torch.device(device))
+        if name not in self._tables:
+            host = self._tables.get("cpu")
+            if host is None:
+                host = self._tables["cpu"] = losses.build_perturb_tables(
+                    self.sde, kt=self.kt)
+            self._tables[name] = host.to(device)
+        return self._tables[name]
+
+    def loss(self, net: torch.nn.Module, x0: torch.Tensor,
+             key: torch.Tensor) -> torch.Tensor:
+        """The DSM/HSM loss of `net` on the batch x0 (on x0's device)."""
+        return losses.dsm_loss(self.sde, self.tables_on(x0.device),
+                               lambda u, t: self.eps_model(net, u, t),
+                               x0, key)
 
     # ---- sampling ------------------------------------------------------------
     def make_eps_fn(self, net: torch.nn.Module, ts: np.ndarray) -> Callable:

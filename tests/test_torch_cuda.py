@@ -36,7 +36,16 @@ Tiers (kernel vs plain version on the same card):
     version (the same unfused products and left-to-right sums, one
     rounding to bf16 at the end); ei_update at q 0-4, the history stacked
     or as separate rows, in the 16-byte and the scalar instance, a
-    misaligned row on the scalar one.
+    misaligned row on the scalar one;
+  * the DiT attention's gradient (the forward kernel inside an autograd
+    Function, the plain backward): dq, dk, dv against torch autograd
+    through the plain version in f32, f32 within 1e-5 of each gradient's
+    scale, bf16 within 2 bf16 ulp; one kernel launch a forward;
+  * three reduced cifar10-cld training steps on the card against the CPU:
+    losses within 1e-4 relative, the first gradients within 1e-3 of
+    scale, params within 2 lr a step (AdamW's sign-like early update) and
+    within 1e-6 for 99%; a train state checkpointed from the card restores
+    on the CPU byte for byte.
 """
 import pytest
 import torch
@@ -825,3 +834,117 @@ def test_ei_update_refuses_what_it_does_not_take(dev):
                               torch.zeros(2, 2, 8, device=dev,
                                           dtype=torch.float64))
 
+
+
+# ---------------------------------------------------------------------------
+# training: the DiT attention's gradient, a training step, checkpoints
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dit_attention_gradient_matches_plain_version(dev, Dh, dtype):
+    """With grad on, the DiT form runs the forward kernel once (counted)
+    and the plain backward; dq, dk, dv against torch autograd through the
+    plain version in f32 on the same values: f32 within 1e-5 of each
+    gradient's scale, bf16 within 2 bf16 ulp (the backward computes in f32
+    and rounds once).  With grad off the call is the forward alone."""
+    g = torch.Generator().manual_seed(Dh)
+    shape = (4, 256, 12 if Dh == 64 else 2, Dh)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kc.reset_launches()
+    out = attn_ops.attention(*leaves, causal=False)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert kc.launches()["flash_attention"] == 1
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref_leaves, causal=False),
+                               ref_leaves, do.float())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+        else:
+            assert _bf16_ulps(a, b.to(dtype)) <= 2
+    with torch.no_grad():
+        plain = attn_ops.attention(*leaves, causal=False)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+    with pytest.raises(NotImplementedError):        # no causal gradient yet
+        attn_ops.attention(*leaves, causal=True)
+
+
+def _reduced_cld(grid_substeps=1):
+    import dataclasses
+    from repro_torch.configs import get_diffusion
+    return dataclasses.replace(get_diffusion("cifar10-cld", reduced=True),
+                               sde=CLD(grid_substeps=grid_substeps))
+
+
+def test_reduced_train_steps_card_match_cpu(dev):
+    """Three `make_diffusion_train_step` steps of reduced cifar10-cld (f32,
+    remat off) on the card and on the CPU from the same weights, batches
+    and keys: losses within 1e-4 relative; the first step's gradients
+    within 1e-3 of each leaf's scale; the params within 2 lr a step of each
+    other everywhere (AdamW's early steps are near lr * sign(g), so a
+    gradient near 0 of another sign moves a param by up to 2 lr) and
+    within 1e-6 for 99% of them."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import diffusion_opt_cfg, \
+        diffusion_pipeline
+    from repro_torch.optim.adamw import adamw_init
+    spec = _reduced_cld()
+    cfg = diffusion_opt_cfg(3e-4, 3)
+    pipe = diffusion_pipeline(spec, 8, 0)
+    nets = {d: spec.init(seed=0, device=d).requires_grad_()
+            for d in ("cpu", "cuda")}
+    states = {d: adamw_init(n.parameters(), cfg) for d, n in nets.items()}
+    step_fn = steps.make_diffusion_train_step(spec, cfg)
+    for i in range(3):
+        x0 = torch.from_numpy(pipe.batch_at(i))
+        key = prng.fold_in(prng.PRNGKey(0), i)
+        if i == 0:
+            grads = {}
+            for d, n in nets.items():
+                loss = spec.loss(n, x0.to(d), key.to(d))
+                grads[d] = torch.autograd.grad(loss, list(n.parameters()))
+            for a, b in zip(grads["cuda"], grads["cpu"]):
+                assert float((a.cpu() - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30)) <= 1e-3
+        m = {d: step_fn(n, states[d], {"x0": x0.to(d)}, key.to(d))
+             for d, n in nets.items()}
+        assert abs(float(m["cuda"]["loss"]) - float(m["cpu"]["loss"])) \
+            <= 1e-4 * abs(float(m["cpu"]["loss"]))
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().ravel()
+                       for a, b in zip(nets["cuda"].parameters(),
+                                       nets["cpu"].parameters())])
+    assert float(diffs.max()) <= 2 * cfg.lr * 3
+    assert float((diffs > 1e-6).float().mean()) <= 1e-2
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(dev, tmp_path):
+    """A train state written from card tensors (bf16 params, f32 moments
+    and masters, an int32 step) restores on the CPU byte for byte."""
+    from repro_torch import convert
+    from repro_torch.ckpt.store import CheckpointStore, tree_flatten
+    from repro_torch.optim.adamw import AdamWCfg, adamw_init
+    spec = _reduced_cld()
+    net = spec.init(seed=3, device=dev).to(torch.bfloat16)
+    st = adamw_init(net.parameters(), AdamWCfg())
+    st.step.fill_(7)
+    for m in st.m:
+        m.normal_()
+    store = CheckpointStore(str(tmp_path))
+    store.save(7, convert.train_state_tree(net, st))
+    store.wait()
+    cpu_net = spec.init(seed=0, device="cpu").to(torch.bfloat16)
+    cpu_st = adamw_init(cpu_net.parameters(), AdamWCfg())
+    step, tree = store.restore_latest(convert.train_state_tree(cpu_net,
+                                                               cpu_st))
+    convert.load_train_state(cpu_net, cpu_st, tree)
+    assert step == 7 and int(cpu_st.step) == 7
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    for a, b in zip(tree_flatten(convert.train_state_tree(net, st))[0],
+                    tree_flatten(convert.train_state_tree(cpu_net,
+                                                          cpu_st))[0]):
+        assert a.dtype == b.dtype and b.device.type == "cpu"
+        assert torch.equal(bits(a.cpu()), bits(b))

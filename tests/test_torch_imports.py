@@ -32,6 +32,9 @@ SLICE_MODULES = [
     "repro_torch.core.gddim", "repro_torch.sde.vpsde",
     "repro_torch.sde.mixture", "repro_torch.train.losses",
     "repro_torch.configs.paper_ddpm", "repro_torch.launch.steps",
+    "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+    "repro_torch.ckpt.store", "repro_torch.launch.train",
+    "repro_torch.core.likelihood", "repro_torch.sde.general",
 ]
 
 
