@@ -75,9 +75,25 @@ likelihood against its closed form and the CLD NLL bound (Hutchinson)
 through the trained DiT; 64 samples from the trained net, and the
 hand-off from the loss to the sampler witnessed by the training data's
 exact eps (its loss against the trained net's, zero's and its
-negation's; its samples on the data's modes).  Last, the reduced configs
+negation's; its samples on the data's modes).  Then the reduced configs
 on the card are checked against the plain versions on the CPU (engine samples, path A samples;
-gemma3-1b's logits and token streams).  It prints:
+gemma3-1b's logits and token streams).  Last, on a card freed of the
+earlier paths, "lm-train": the causal / window / GQA attention's
+gradient (`FlashAttention`: the forward kernel, the plain backward) against
+autograd through the plain version at the training shapes (4, 1024, 4,
+256) over 1 kv head, window 512 and global, and (4, 1024, 14, 64) over
+2, bf16, within 2 bf16 ulp, timed beside the plain backward and SDPA;
+the entry point `launch.train.train_lm` on full-width gemma3-1b (bf16,
+remat on) for 30 steps at batch 4 x 1024 (52 flash_attention launches a
+step, checked; the step-0 loss within 1 nat of ln(vocab) and falling;
+tokens/s, one traced step's device share and peak memory) and on
+internvl2-1b for 10 (its stub embeddings; 48 launches a step); reduced
+gemma3-1b card vs CPU (losses within 1e-5) and a run preempted at step 3
+and resumed (bitwise, or within the spread of two uninterrupted runs,
+printed); then the four new configs served on a TokenEngine (internvl2-
+1b, nemotron-4-15b and deepseek-coder-33b at full width and the depth
+that fits, llama3-405b at 4 of 126 layers), each with its logits against
+the plain attention and the records of its (Hq, Hkv, Dh).  It prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -1492,37 +1508,47 @@ def decode_cluster_sweep(q, k, v, cl, window):
     return sweep
 
 
-def lm_records(engine, counts, gen, dev):
-    """decode_attention and the causal flash_attention at the token path's
-    shapes (bf16; window 512 and global), each against its plain version
-    (at most 2 bf16 ulp; f32 inputs within 1e-5 / 2e-5) and timed beside
-    it, its bound and SDPA with the same boolean mask."""
+def lm_records(cfg, counts, gen, dev, *, path=LM_ARCH, prompts=LM_LENS,
+               max_len=LM_MAX_LEN, windows=(512, None), tag=None):
+    """decode_attention and the causal flash_attention at a token path's
+    shapes (bf16; `cfg`'s heads, each window of `windows`), each against
+    its plain version (at most 2 bf16 ulp; f32 inputs within 1e-5 / 2e-5)
+    and timed beside it, its bound and SDPA with the same boolean mask.
+    The records of another arch than gemma3-1b carry its name as `tag`."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import attention_ref
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    cfg = engine.arch.cfg
-    Hq, Hkv, Dh, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, LM_MAX_LEN
+    Hq, Hkv, Dh, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, max_len
     rep = Hq // Hkv
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     bf = torch.bfloat16
     records = []
 
-    # decode: the rows mid-serve, 24 tokens past prompts of 96 and 640
-    lens = [LM_LENS[b % 2] + 24 for b in range(BATCH)]
+    def named(kernel, window):
+        if tag is not None:
+            return (f"{kernel}[{tag}]" if kernel == "decode_attention"
+                    else f"{kernel}[causal,{tag}]")
+        if kernel == "decode_attention":
+            return kernel + ("[global]" if window is None else "")
+        return kernel + ("[causal,global]" if window is None
+                         else "[causal,window]")
+
+    # decode: the rows mid-serve, 24 tokens past the prompts
+    lens = [prompts[b % 2] + 24 for b in range(BATCH)]
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
     q32, k32, v32 = rnd(BATCH, Hq, Dh), rnd(BATCH, S, Hkv, Dh), \
         rnd(BATCH, S, Hkv, Dh)
     q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
-    for window in (512, None):
+    for window in windows:
         got = dec_ops.decode_attention(q, k, v, cl, window=window)
         want = decode_attention_ref(q, k, v, cl, window=window)
         got32 = dec_ops.decode_attention(q32, k32, v32, cl, window=window)
         want32 = decode_attention_ref(q32, k32, v32, cl, window=window)
         torch.cuda.synchronize()
         ulp, err32 = ulp_err(got, want), max_err(got32, want32)
-        log(f"[{LM_ARCH}] decode_attention (window {window}) vs plain: bf16 "
+        log(f"[{path}] decode_attention (window {window}) vs plain: bf16 "
             f"max {ulp:.1f} bf16 ulp (tol 2), max abs err "
             f"{max_err(got, want):.3e}; f32 {err32:.3e} (tol 1e-5)")
         check(ulp <= 2 and err32 <= 1e-5,
@@ -1542,8 +1568,8 @@ def lm_records(engine, counts, gen, dev):
         log(f"  decode_attention by blocks per cluster (median launch, ms; "
             f"the wrapper takes {dec_ops.cluster_blocks(S)}): {sweep}")
         rec = timed_record(
-            "decode_attention" + ("[global]" if window is None else ""),
-            LM_ARCH, "src/repro_torch/csrc/decode_attention.cu",
+            named("decode_attention", window),
+            path, "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:93",
             counts.get("decode_attention", 0), max_err(got, want),
             lambda: dec_ops.decode_attention(q, k, v, cl, window=window),
@@ -1554,12 +1580,12 @@ def lm_records(engine, counts, gen, dev):
         rec.update(cluster_sweep_ms=sweep)
         records.append(rec)
 
-    # prefill: one 640-token prompt into the 1024-long cache (G = 1, as the
-    # alternating prompt lengths make every admission wave)
-    L = LM_LENS[1]
+    # prefill: the longer prompt into the cache (G = 1, as the alternating
+    # prompt lengths make every admission wave)
+    L = prompts[1]
     q32, k32, v32 = rnd(1, L, Hq, Dh), rnd(1, S, Hkv, Dh), rnd(1, S, Hkv, Dh)
     q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
-    for window in (512, None):
+    for window in windows:
         kw = dict(causal=True, window=window, q_offset=0)
         got = attn_ops.attention(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
@@ -1567,7 +1593,7 @@ def lm_records(engine, counts, gen, dev):
         want32 = attention_ref(q32, k32, v32, **kw)
         torch.cuda.synchronize()
         ulp, err32 = ulp_err(got, want), max_err(got32, want32)
-        log(f"[{LM_ARCH}] flash_attention causal (window {window}) vs plain: "
+        log(f"[{path}] flash_attention causal (window {window}) vs plain: "
             f"bf16 max {ulp:.1f} bf16 ulp (tol 2), max abs err "
             f"{max_err(got, want):.3e}; f32 {err32:.3e} (tol 2e-5)")
         check(ulp <= 2 and err32 <= 2e-5,
@@ -1586,35 +1612,33 @@ def lm_records(engine, counts, gen, dev):
         kh = k.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
         vh = v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
         records.append(timed_record(
-            "flash_attention[causal" + (",global]" if window is None
-                                        else ",window]"),
-            LM_ARCH, "src/repro_torch/csrc/attention.cu",
+            named("flash_attention", window),
+            path, "src/repro_torch/csrc/attention.cu",
             "src/repro/kernels/attention/kernel.py:109",
             counts.get("flash_attention", 0), max_err(got, want),
             lambda: attn_ops.attention(q, k, v, **kw),
-            "flash_lm_wgmma_kernel<256",
+            f"flash_lm_wgmma_kernel<{Dh}",
             lambda: attention_ref(q, k, v, **kw), nbytes, ops, BF16_FLOPS,
             library_fn=lambda: sdpa(qh, kh, vh, attn_mask=keep)))
     return records
 
 
-def lm_model_check(engine, gen, dev):
-    """Full-width gemma3-1b, bf16: the last prompt position's logits and
+def lm_model_check(arch, params, dev, *, name=LM_ARCH, prompt=LM_LENS[1],
+                   max_len=LM_MAX_LEN):
+    """`arch` at full width, bf16: the last prompt position's logits and
     one per-slot decode step with the kernels against the same model with
     the plain attention versions (tol 5e-2 of max |logits|: bf16 rounding
-    through 26 layers)."""
+    through every layer)."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import attention_ref
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    arch, params = engine.arch, engine.params
     toks = torch.from_numpy(np.random.default_rng(9).integers(
-        2, arch.cfg.vocab, size=(2, LM_LENS[1]))).to(dev)
-    pos = torch.tensor([LM_LENS[1], LM_LENS[1] - 3], dtype=torch.int32,
-                       device=dev)
+        2, arch.cfg.vocab, size=(2, prompt))).to(dev)
+    pos = torch.tensor([prompt, prompt - 3], dtype=torch.int32, device=dev)
 
     def run():
-        logits, caches = arch.prefill(params, {"tokens": toks}, LM_MAX_LEN)
+        logits, caches = arch.prefill(params, {"tokens": toks}, max_len)
         nxt = torch.argmax(logits, -1)[:, None]
         logits2, _ = arch.decode(params, nxt, caches, pos)
         return logits.float(), logits2.float()
@@ -1632,11 +1656,11 @@ def lm_model_check(engine, gen, dev):
     for what, a, b in zip(("prefill", "decode"), kern, plain):
         scale = float(b.abs().max())
         err = max_err(a, b) / scale
-        log(f"[{LM_ARCH}] bf16 {what} logits, kernels vs plain attention: "
+        log(f"[{name}] bf16 {what} logits, kernels vs plain attention: "
             f"max abs err / max|logits| = {err:.3e} (tol 5e-2), max|logits| "
             f"{scale:.3e}")
         check(math.isfinite(scale) and err <= 5e-2,
-              f"{LM_ARCH}: {what} logits beyond tolerance")
+              f"{name}: {what} logits beyond tolerance")
 
 
 def reduced_lm_check():
@@ -1753,6 +1777,50 @@ def train_args(spec, **kw) -> argparse.Namespace:
         ckpt_every=0, resume=False, log_every=0, device="cuda"), **kw})
 
 
+class StepClock:
+    """A trainer's `on_step` that times its steps: it synchronizes the card
+    and stamps each call (the start, then after every step), keeps the
+    step metrics and the memory resident at the start, and traces the
+    last of `traced` steps where given."""
+
+    def __init__(self, traced: int | None = None):
+        self.clock, self.metrics, self.resident = [], [], []
+        self.traced = traced
+        self.prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    def __call__(self, step, model, opt_state, m) -> None:
+        torch.cuda.synchronize()
+        self.clock.append(time.perf_counter())
+        if m is None:
+            self.resident.append(torch.cuda.memory_allocated() / 2 ** 30)
+        else:
+            self.metrics.append(m)
+        if self.traced is not None and step == self.traced - 1:
+            self.prof.start()
+        elif self.traced is not None and step == self.traced:
+            self.prof.stop()
+
+    def step_seconds(self, warm: int) -> np.ndarray:
+        """Wall seconds of the steps from `warm` on, the traced one left
+        out."""
+        durs = np.diff(self.clock)                  # step i: durs[i]
+        return durs[warm:len(durs) - (self.traced is not None)]
+
+    def traced_step(self, top_path: Path):
+        """(wall s, device busy s, device events) of the traced step; its
+        kernels' device time by name, largest first, into `top_path`."""
+        events = kernel_events(self.prof)
+        top = {}
+        for e in events:
+            top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top_path.write_text("".join(
+            f"{us:.1f}\t{name}\n" for name, us in sorted(
+                top.items(), key=lambda kv: -kv[1])))
+        return (float(np.diff(self.clock)[-1]), sum(top.values()) / 1e6,
+                len(events))
+
+
 def train_phase(spec, dev, card, gen):
     """Diffusion training at full width (`spec`: cifar10-cld, DiT 24 x 768,
     bf16, remat on) through the entry point `train_diffusion`, random
@@ -1774,22 +1842,7 @@ def train_phase(spec, dev, card, gen):
     pipe = diffusion_pipeline(spec, TRAIN_BATCH, SEED)
     spec.tables_on(dev)                          # Stage I, before the clock
 
-    clock, metrics, resident = [], [], []
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-
-    def watch(step, net, st, m):
-        torch.cuda.synchronize()
-        clock.append(time.perf_counter())
-        if m is None:
-            resident.append(torch.cuda.memory_allocated() / 2 ** 30)
-        else:
-            metrics.append(m)
-        if step == TRAIN_STEPS - 1:
-            prof.start()
-        elif step == TRAIN_STEPS:
-            prof.stop()
-
+    watch = StepClock(traced=TRAIN_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kc.reset_launches()
@@ -1800,8 +1853,8 @@ def train_phase(spec, dev, card, gen):
     n_params = sum(p.numel() for p in net.parameters())
     n_layers = spec.score_cfg.n_layers
     flash_train = counts.get("flash_attention", 0)
-    losses = [float(m["loss"]) for m in metrics]
-    gnorms = [float(m["grad_norm"]) for m in metrics]
+    losses = [float(m["loss"]) for m in watch.metrics]
+    gnorms = [float(m["grad_norm"]) for m in watch.metrics]
     log(f"[train] train_diffusion, cifar10-cld full width ({n_params} "
         f"params, bf16, remat {spec.score_cfg.remat}), batch {TRAIN_BATCH}, "
         f"{len(losses)} steps: launches {counts} ({2 * n_layers} "
@@ -1813,10 +1866,9 @@ def train_phase(spec, dev, card, gen):
     check(flash_train == 2 * n_layers * TRAIN_STEPS,
           f"[train] {flash_train} flash_attention launches, expected "
           f"{2 * n_layers * TRAIN_STEPS}")
-    durs = np.diff(clock)                        # step i: durs[i]
-    timed = durs[TRAIN_WARM:TRAIN_STEPS - 1]
-    busy = sum(e.time_range.elapsed_us() for e in kernel_events(prof)) / 1e6
-    wall = durs[-1]
+    timed = watch.step_seconds(TRAIN_WARM)
+    wall, busy, n_events = watch.traced_step(ROOT / "chiprun_out"
+                                             / "train_profile.txt")
     log(f"[train] loss {losses[0]:.5f} -> {losses[-1]:.5f} (every 5th: "
         f"{[round(x, 5) for x in losses[::5]]}); grad norm {gnorms[0]:.4f} "
         f"-> {gnorms[-1]:.4f}; {TRAIN_BATCH * len(timed) / sum(timed):.3f} "
@@ -1824,15 +1876,9 @@ def train_phase(spec, dev, card, gen):
         f"{1e3 * float(np.median(timed)):.3f} ms); one traced step: wall "
         f"{1e3 * wall:.3f} ms, device busy {1e3 * busy:.3f} ms "
         f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% "
-        f"idle), {len(kernel_events(prof))} device events; peak memory "
-        f"{peak:.3f} GiB allocated ({resident[0]:.3f} GiB at step 0, the "
-        f"earlier phases' nets and the fresh train state included) ({card})")
-    top = {}
-    for e in kernel_events(prof):
-        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
-    (ROOT / "chiprun_out" / "train_profile.txt").write_text("".join(
-        f"{us:.1f}\t{name}\n" for name, us in sorted(top.items(),
-                                                     key=lambda kv: -kv[1])))
+        f"idle), {n_events} device events; peak memory {peak:.3f} GiB "
+        f"allocated ({watch.resident[0]:.3f} GiB at step 0, the earlier "
+        f"phases' nets and the fresh train state included) ({card})")
 
     # ---- preempted at TRAIN_SAVE, resumed to the end ------------------------
     ckdir = ROOT / "build" / "ckpt_smoke"
@@ -2075,6 +2121,464 @@ def likelihood_checks(spec, net, pipe, dev, card) -> None:
           "did not run the attention kernel")
 
 
+# ---- lm-train: LM training at full width, the dense configs served -----------
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_WARM = 4, 1024, 30, 5
+VLM_ARCH, VLM_STEPS = "internvl2-1b", 10
+LM_REDUCED_STEPS, LM_REDUCED_SAVE = 5, 3
+# the new configs served: 4 requests a list, prompts of 96 and 200 tokens,
+# 32 new each, caches of 256; llama3-405b at 4 of its 126 layers (all 126
+# hold 810 GB of bf16 weights), the others at the depth that fits
+SERVE_ARCHS = ("internvl2-1b", "nemotron-4-15b", "deepseek-coder-33b",
+               "llama3-405b")
+SERVE_LAYERS = {"llama3-405b": 4}
+SERVE_PROMPTS, SERVE_NEW, SERVE_LEN, SERVE_N = (96, 200), 32, 256, 4
+GIB = 2 ** 30
+
+
+def lm_train_args(arch: str, **kw) -> argparse.Namespace:
+    """`launch.train`'s command line for the phase's LM runs."""
+    return argparse.Namespace(**{**dict(
+        arch=arch, reduced=False, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+        seq_len=LM_TRAIN_SEQ, lr=TRAIN_LR, seed=SEED, ckpt_dir=None,
+        ckpt_every=0, resume=False, log_every=0, device="cuda"), **kw})
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def lm_grad_check(shape, hkv, window, gen, dev):
+    """The causal form with a gradient at a training shape (B, S, Hq, Dh)
+    over `hkv` kv heads, bf16: `FlashAttention`'s output (the forward kernel,
+    one launch) and its dq, dk, dv (the plain backward from the saved q,
+    k, v) against torch autograd through the plain version in f32 on the
+    same values, within 2 bf16 ulp at max(|g|, max|g| / 1024).  Times
+    (device ms) the plain backward, the Function's forward + backward and
+    SDPA's forward + backward (GQA by repeated kv heads; a yardstick, not
+    on the path).  Returns (q, k, v, forward max abs err, timings, SDPA's
+    mask keywords)."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                                   attention_ref)
+    B, S, Hq, Dh = shape
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, do = rnd(B, S, Hq, Dh), rnd(B, S, Hq, Dh)
+    k, v = rnd(B, S, hkv, Dh), rnd(B, S, hkv, Dh)
+    what = f"{tuple(shape)} over {hkv} kv heads, window {window}"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    inst = attn_ops.WINDOW_COUNT if window else attn_ops.GLOBAL_COUNT
+    n0 = [kc.launches().get(c, 0) for c in ("flash_attention", inst)]
+    out = attn_ops.attention(*leaves, causal=True, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    check([kc.launches().get(c, 0) for c in ("flash_attention", inst)]
+          == [n + 1 for n in n0]
+          and "FlashAttention" in type(out.grad_fn).__name__,
+          f"[lm-train] the causal gradient at {what} did not run the "
+          "forward kernel once inside FlashAttention")
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_leaves, causal=True, window=window)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    torch.cuda.synchronize()
+    err_fwd = max_err(out.detach(), ref_out.detach())
+    ulp_fwd = ulp_err(out.detach(), ref_out.detach().to(torch.bfloat16))
+    log(f"[lm-train] causal attention output at {what}, bf16: the forward "
+        f"kernel vs the plain version in f32: max {ulp_fwd:.2f} bf16 ulp "
+        f"(tol 2), max abs err {err_fwd:.3e}")
+    check(bool(torch.isfinite(out).all()) and ulp_fwd <= 2,
+          f"[lm-train] causal flash_attention beyond tolerance at {what}")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ulps, scale = ulp_err(a, b.to(torch.bfloat16)), float(b.abs().max())
+        log(f"[lm-train] causal attention gradient {name} at {what}: max "
+            f"{ulps:.2f} bf16 ulp (tol 2), max abs err / max|g| "
+            f"{max_err(a, b) / scale:.3e}")
+        check(bool(torch.isfinite(a).all()) and ulps <= 2,
+              f"[lm-train] causal attention gradient {name} beyond "
+              f"tolerance at {what}")
+    del ref_leaves, ref_out, want, got, out
+    rep = Hq // hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sl = [q.transpose(1, 2).contiguous().requires_grad_()] + [
+        t.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        .requires_grad_() for t in (k, v)]
+    doh = do.transpose(1, 2).contiguous()
+    pos = torch.arange(S, device=dev)
+    mask = None if window is None else (
+        (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window))
+    kw = dict(is_causal=True) if window is None else dict(attn_mask=mask)
+    times = dict(
+        plain_bwd_ms=time_ms(lambda: attention_bwd_ref(
+            q, k, v, do, causal=True, window=window), 10)[0],
+        function_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+            attn_ops.attention(*leaves, causal=True, window=window), leaves,
+            do), 10)[0],
+        sdpa_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+            sdpa(*sl, **kw), sl, doh), 10)[0])
+    log(f"[lm-train] causal attention at {what}: plain backward "
+        f"{times['plain_bwd_ms']:.5f} ms; the Function forward + backward "
+        f"{times['function_fwd_bwd_ms']:.5f} ms; SDPA forward + backward "
+        f"{times['sdpa_fwd_bwd_ms']:.5f} ms (device ms)")
+    return q, k, v, err_fwd, times, kw
+
+
+def lm_train_record(name, path, q, k, v, window, launches, err, times,
+                    sdpa_kw):
+    """The kernels-line record of the causal flash_attention forward at a
+    training shape, SDPA's forward as the library yardstick; the
+    backward timings ride along."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    B, S, Hq, Dh = q.shape
+    rep = Hq // k.shape[2]
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = timed_record(
+        name, path, "src/repro_torch/csrc/attention.cu",
+        "src/repro/kernels/attention/kernel.py:109", launches, err,
+        lambda: attn_ops.flash_attention_causal(q, k, v, window=window),
+        f"flash_lm_wgmma_kernel<{Dh}",
+        lambda: attention_ref(q, k, v, causal=True, window=window),
+        2 * (2 * q.numel() + 2 * k.numel()),        # q, k, v read; o written
+        4 * B * causal_pairs(S, S, window) * Hq * Dh, BF16_FLOPS,
+        library_fn=lambda: sdpa(qh, kh, vh, **sdpa_kw))
+    rec.update(times)
+    return rec
+
+
+def lm_train_full(arch_name, steps, dev, card, trace: bool):
+    """`launch.train.train_lm` on `arch_name` at full width (bf16, remat
+    on), batch LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, `steps` steps, each
+    timed by its `on_step` call with the card synchronized (the last one
+    traced where `trace`).  Checks finite losses and 2 flash_attention
+    launches a layer a step (forward and remat recompute), counted by
+    instance: 2 a windowed layer a step with the window, 2 a global layer
+    without.  Returns (losses, launches by name, peak GiB, a dict of
+    timings)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.transformer import param_list
+    cfg = get_arch(arch_name).cfg
+    watch, tree_mem = StepClock(traced=steps if trace else None), {}
+
+    def on_step(step, params, st, m):
+        watch(step, params, st, m)
+        if trace and step == steps:
+            tree_mem.update(state_tree_check(params, st, cfg))
+    free_card()
+    before = torch.cuda.memory_allocated() / GIB
+    torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    run = train_lm(lm_train_args(arch_name, steps=steps), on_step=on_step)
+    counts = kc.launches()
+    peak = tree_mem.get("train_peak", torch.cuda.max_memory_allocated() / GIB)
+    embed = tuple(run["params"]["embed"].shape)
+    n_params = sum(t.numel() for t in param_list(run["params"]))
+    n_layers = len(run["params"]["layers"])
+    del run
+    free_card()
+    losses = [float(m["loss"]) for m in watch.metrics]
+    gnorms = [float(m["grad_norm"]) for m in watch.metrics]
+    n_win = sum(cfg.layer_windows[i % cfg.pattern] is not None
+                for i in range(n_layers))
+    want = {"flash_attention": 2 * n_layers * steps,
+            attn_ops.WINDOW_COUNT: 2 * n_win * steps,
+            attn_ops.GLOBAL_COUNT: 2 * (n_layers - n_win) * steps}
+    got = {name: counts.get(name, 0) for name in want}
+    log(f"[lm-train] train_lm {arch_name} full width ({n_params} params, "
+        f"embed {embed}, bf16, remat on), batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} tokens, {len(losses)} steps in "
+        f"{time.perf_counter() - t0:.2f}s (init included): launches "
+        f"{counts} ({want} expected: forward and remat recompute, {n_win} "
+        f"of {n_layers} layers windowed)")
+    check(len(losses) == steps and all(math.isfinite(x)
+                                       for x in losses + gnorms),
+          f"[lm-train] {arch_name}: a loss or grad norm is not finite, or "
+          "steps are missing")
+    check(got == want, f"[lm-train] {arch_name}: flash_attention launches "
+          f"{got}, expected {want}")
+    timed = watch.step_seconds(LM_TRAIN_WARM if trace else 1)
+    med = float(np.median(timed))
+    out = dict(wall_ms=1e3 * med,
+               tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / med)
+    line = (f"[lm-train] {arch_name}: loss {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f} (every 5th: "
+            f"{[round(x, 5) for x in losses[::5]]}); grad norm "
+            f"{gnorms[0]:.4f} -> {gnorms[-1]:.4f}; median step "
+            f"{out['wall_ms']:.3f} ms, {out['tokens_per_s']:.1f} tokens/s")
+    if trace:
+        wall, busy, n_events = watch.traced_step(
+            ROOT / "chiprun_out" / "train_lm_profile.txt")
+        out.update(device_ms=1e3 * busy, traced_wall_ms=1e3 * wall)
+        line += (f"; one traced step: wall {1e3 * wall:.3f} ms, device busy "
+                 f"{1e3 * busy:.3f} ms ({100 * busy / wall:.1f}% busy), "
+                 f"{n_events} device events")
+    log(line + f"; peak memory {peak:.3f} GiB allocated ({before:.3f} GiB "
+        f"resident before, {watch.resident[0]:.3f} at step 0 with the fresh "
+        f"train state) ({card})")
+    if tree_mem:
+        log(f"[lm-train] {arch_name}: the checkpoint's tree of the trained "
+            f"state (lm_train_state_tree, {tree_mem['gib']:.3f} GiB on the "
+            f"host, built in {tree_mem['build_s']:.2f}s) and its copy back "
+            f"in place (load_lm_train_state, {tree_mem['load_s']:.2f}s, "
+            f"params bitwise): device peak {tree_mem['peak']:.3f} GiB above "
+            f"the {tree_mem['resident']:.3f} GiB resident ({card})")
+    return losses, got, peak, out
+
+
+def state_tree_check(params, opt_state, cfg) -> dict:
+    """What a checkpoint of the trained full-width state costs the card,
+    without the disk: `lm_train_state_tree` (the tree `train_lm` saves,
+    and the template a resume restores into) and `load_lm_train_state`
+    (a resume's copy back in place) of the same values.  Checks that every
+    leaf of the tree lies on the host, that the params come back bitwise,
+    and that the device peak above the resident state stays under 1 GiB.
+    Returns the training's peak (read first) and these numbers."""
+    from repro_torch.ckpt.store import tree_flatten
+    from repro_torch.convert import lm_train_state_tree, load_lm_train_state
+    from repro_torch.models.transformer import param_list
+    torch.cuda.synchronize()
+    out = dict(train_peak=torch.cuda.max_memory_allocated() / GIB,
+               resident=torch.cuda.memory_allocated() / GIB)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = lm_train_state_tree(params, opt_state, cfg)
+    leaves = tree_flatten(tree)[0]
+    out["build_s"] = time.perf_counter() - t0
+    out["gib"] = sum(t.numel() * t.element_size() for t in leaves) / GIB
+    check(all(t.device.type == "cpu" for t in leaves), "[lm-train] the "
+          "checkpoint tree holds a leaf on the card")
+    want = [t.detach().cpu() for t in param_list(params)]
+    t0 = time.perf_counter()
+    load_lm_train_state(params, opt_state, tree, cfg)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["peak"] = torch.cuda.max_memory_allocated() / GIB - out["resident"]
+    check(all(torch.equal(a, b.detach().cpu())
+              for a, b in zip(want, param_list(params))),
+          "[lm-train] the params did not come back bitwise from the "
+          "checkpoint tree")
+    check(out["peak"] < 1.0, f"[lm-train] building and loading the "
+          f"checkpoint tree took {out['peak']:.3f} GiB of device memory")
+    return out
+
+
+def reduced_lm_train_check() -> None:
+    """Reduced gemma3-1b (f32, remat off) through `train_lm`,
+    LM_REDUCED_STEPS steps at batch 4 x 64 on the card and on the CPU,
+    both resumed from one step-0 checkpoint of the CPU's seeded weights
+    (each device's generator draws its own numbers): losses within 1e-5
+    relative.  Then on the card the same run preempted at
+    LM_REDUCED_SAVE by `on_step` with its checkpoint and resumed with
+    --resume: its params and losses bitwise equal to the uninterrupted
+    card run (else within the spread of two uninterrupted card runs,
+    printed)."""
+    import shutil
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.transformer import param_list
+    top = ROOT / "build" / "ckpt_lm_smoke"
+    shutil.rmtree(top, ignore_errors=True)
+    args = lambda **kw: lm_train_args(LM_ARCH, reduced=True,
+                                      steps=LM_REDUCED_STEPS, batch=4,
+                                      seq_len=64, **kw)
+    train_lm(args(device="cpu", ckpt_dir=str(top / "start")),
+             on_step=lambda *_: True)                # stops at step 0
+
+    def run(name, on_step=None, **kw):
+        """A run resumed from the newest checkpoint under `name` (a copy
+        of the step-0 one where there is none yet); returns (its result,
+        its losses)."""
+        if not (top / name).exists():
+            shutil.copytree(top / "start", top / name)
+        losses = []
+
+        def on(step, p, st, m):
+            if m is not None:
+                losses.append(float(m["loss"]))
+            return on_step is not None and on_step(step)
+
+        out = train_lm(args(ckpt_dir=str(top / name), resume=True, **kw),
+                       on_step=on)
+        return out, losses
+
+    (card, lc), (_, lp) = run("card"), run("cpu", device="cpu")
+    rel = [abs(a - b) / abs(b) for a, b in zip(lc, lp)]
+    log(f"reduced {LM_ARCH} train_lm, {LM_REDUCED_STEPS} steps from one "
+        f"checkpoint, card vs CPU: loss rel err "
+        f"{[f'{r:.2e}' for r in rel]} (tol 1e-5)")
+    check(len(lc) == len(lp) == LM_REDUCED_STEPS and max(rel) <= 1e-5,
+          f"reduced {LM_ARCH} training: the card disagrees with the CPU")
+    cut, _ = run("cut", on_step=lambda step: step >= LM_REDUCED_SAVE,
+                 ckpt_every=LM_REDUCED_SAVE)
+    check(cut["step"] == LM_REDUCED_SAVE, f"[lm-train] the preempted run "
+          f"stopped at step {cut['step']}")
+    res, lr_ = run("cut")
+    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        param_list(card["params"]), param_list(res["params"])))
+    same = diff == 0.0 and lr_ == lc[LM_REDUCED_SAVE:]
+    log(f"reduced {LM_ARCH} train_lm preempted at step {LM_REDUCED_SAVE} "
+        f"and resumed on the card: losses {lr_} vs "
+        f"{lc[LM_REDUCED_SAVE:]}, max |params - uninterrupted| {diff:.3e}"
+        f"{' (bitwise)' if same else ''}")
+    if not same:
+        again, _ = run("again")
+        spread = max(float((a.detach() - b.detach()).abs().max())
+                     for a, b in zip(param_list(card["params"]),
+                                     param_list(again["params"])))
+        log(f"[lm-train] resume not bitwise: two uninterrupted card runs "
+            f"differ by {spread:.3e}, the resumed run by {diff:.3e}")
+        check(diff <= spread, "[lm-train] the resumed run differs from the "
+              "uninterrupted one by more than two uninterrupted runs do")
+    shutil.rmtree(top, ignore_errors=True)
+
+
+def serve_depth(name: str, cfg) -> int:
+    """Layers of `name` kept on the card: all of them where the free
+    memory holds the bf16 weights, the caches of a batch-BATCH engine of
+    SERVE_LEN and 2 GiB besides, else the most that do (and at most
+    SERVE_LAYERS[name])."""
+    d, a = cfg.d_model, cfg.d_head
+    layer = 2 * (d * a * 2 * (cfg.n_heads + cfg.n_kv_heads)
+                 + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff + 2 * d)
+    cache = 2 * 2 * BATCH * SERVE_LEN * cfg.n_kv_heads * a
+    embed = 2 * cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    free = torch.cuda.mem_get_info()[0]
+    fit = (free - embed - 2 * GIB) // (layer + cache)
+    n = min(cfg.n_layers, SERVE_LAYERS.get(name, cfg.n_layers), int(fit))
+    log(f"[serve {name}] {free / GIB:.2f} GiB free; bf16 weights "
+        f"{(embed + cfg.n_layers * layer) / GIB:.2f} GiB at full depth "
+        f"({cfg.n_layers} layers of {layer / GIB:.3f} GiB, embedding "
+        f"{embed / GIB:.3f}): serving {n} of {cfg.n_layers} layers")
+    check(n >= 1, f"[serve {name}] not one layer fits")
+    return n
+
+
+def serve_new_arch(name: str, dev, card, gen):
+    """A new config at full width (depth cut to what fits, logged) on a
+    batch-BATCH TokenEngine: SERVE_N requests of SERVE_NEW tokens, counts
+    reset before and read after (flash_attention in prefill,
+    decode_attention in decode, each launched), every id in [0, vocab);
+    then its logits with the kernels against the plain attention, and the
+    records of its (Hq, Hkv, Dh).  Returns (records, layers served)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import TokenEngine
+    free_card()
+    spec = get_arch(name)
+    layers = serve_depth(name, spec.cfg)
+    if layers < spec.cfg.n_layers:
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, n_layers=layers))
+    arch = Arch(spec)
+    t0 = time.perf_counter()
+    params = arch.init(seed=SEED, device=dev)
+    engine = TokenEngine(arch, params, batch_size=BATCH, max_len=SERVE_LEN,
+                         eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    vocab = arch.cfg.vocab
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(lm_requests(vocab, SEED, n=SERVE_N,
+                                       lens=SERVE_PROMPTS,
+                                       max_new=SERVE_NEW))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    log(f"[serve {name}] {layers} layers, Hq {arch.cfg.n_heads} over Hkv "
+        f"{arch.cfg.n_kv_heads} of {arch.cfg.d_head}: weights drawn in "
+        f"{t_init:.2f}s, {torch.cuda.memory_allocated() / GIB:.2f} GiB "
+        f"allocated; {len(results)} requests, {SERVE_N * SERVE_NEW} tokens "
+        f"in {dt:.3f}s (first serve, nothing warmed) ({card}); launches "
+        f"{counts}")
+    check(sorted(results) == list(range(SERVE_N)), f"{name}: missing "
+          "results")
+    for rid, ids in results.items():
+        check(len(ids) == SERVE_NEW and bool(((ids >= 0) & (ids < vocab))
+                                             .all()),
+              f"{name}: request {rid} returned {len(ids)} tokens or ids "
+              f"outside [0, {vocab})")
+    for kname in LM_KERNELS:
+        check(counts.get(kname, 0) > 0, f"{name}: {kname} never launched")
+    lm_model_check(arch, params, dev, name=name, prompt=SERVE_PROMPTS[1],
+                   max_len=SERVE_LEN)
+    del engine, params
+    free_card()
+    recs = lm_records(arch.cfg, counts, gen, dev, path=name,
+                      prompts=SERVE_PROMPTS, max_len=SERVE_LEN,
+                      windows=(None,), tag=name)
+    return recs, layers
+
+
+def lm_train_phase(dev, card, gen):
+    """LM training on the card through `launch.train.train_lm`: the causal
+    gradient at the training shapes; full-width gemma3-1b (30 steps, 52
+    flash_attention launches a step, its loss from ln(vocab) down) and
+    internvl2-1b (the embeddings branch); reduced gemma3-1b card vs CPU
+    and a bitwise resume; then the four new configs served.  Returns the
+    kernels-line records."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    t_phase = time.perf_counter()
+    g = get_arch(LM_ARCH).cfg
+    vl = get_arch(VLM_ARCH).cfg
+    shapes = [
+        ("gemma3-1b,window", LM_ARCH, (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                       g.n_heads, g.d_head), g.n_kv_heads,
+         max(w or 0 for w in g.layer_windows)),
+        ("gemma3-1b,global", LM_ARCH, (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                       g.n_heads, g.d_head), g.n_kv_heads,
+         None),
+        (VLM_ARCH, VLM_ARCH, (LM_TRAIN_BATCH, LM_TRAIN_SEQ, vl.n_heads,
+                              vl.d_head), vl.n_kv_heads, None)]
+    checked = [lm_grad_check(shape, hkv, window, gen, dev)
+               for _, _, shape, hkv, window in shapes]
+    losses, flash, peak, _ = lm_train_full(LM_ARCH, LM_TRAIN_STEPS, dev,
+                                           card, trace=True)
+    ln_v = math.log(g.vocab)
+    log(f"[lm-train] {LM_ARCH}: step-0 loss {losses[0]:.5f} against ln "
+        f"{g.vocab} = {ln_v:.5f} (tol 1 nat); mean of the first 5 "
+        f"{np.mean(losses[:5]):.5f}, of the last 5 {np.mean(losses[-5:]):.5f}")
+    check(abs(losses[0] - ln_v) <= 1.0, f"[lm-train] {LM_ARCH}: step-0 loss "
+          f"{losses[0]:.4f} not within 1 nat of ln(vocab) {ln_v:.4f}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"[lm-train] {LM_ARCH}: the loss did not fall")
+    _, vflash, vpeak, _ = lm_train_full(VLM_ARCH, VLM_STEPS, dev, card,
+                                        trace=False)
+    # each record's launches: the measured count of its instance
+    launches = [flash[attn_ops.WINDOW_COUNT], flash[attn_ops.GLOBAL_COUNT],
+                vflash[attn_ops.GLOBAL_COUNT]]
+    records = []
+    for (tag, path, _, _, window), (q, k, v, err, tms, kw), n in zip(
+            shapes, checked, launches):
+        records.append(lm_train_record(
+            f"flash_attention[train,{tag}]", f"train_lm {path}, batch "
+            f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}", q, k, v, window, n, err,
+            tms, kw))
+    del checked
+    reduced_lm_train_check()
+    log(f"[lm-train] training: {time.perf_counter() - t_phase:.2f}s; peak "
+        f"memory {peak:.3f} GiB ({LM_ARCH}), {vpeak:.3f} GiB ({VLM_ARCH}) "
+        f"({card})")
+    cut = {}
+    for name in SERVE_ARCHS:
+        recs, cut[name] = serve_new_arch(name, dev, card, gen)
+        records += recs
+    log(f"[lm-train] layers served of each new config: {cut}; phase "
+        f"{time.perf_counter() - t_phase:.2f}s")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2157,8 +2661,8 @@ def main() -> int:
         # keys, kc, cfg and alg[cfg] a slot in, the draw out
         4 * (BATCH * (2 + 1 + 1 + 1) + BATCH * n), 0, F32_FLOPS))
 
-    records += lm_records(lm_engine, lm_counts, gen, dev)
-    lm_model_check(lm_engine, gen, dev)
+    records += lm_records(lm_engine.arch.cfg, lm_counts, gen, dev)
+    lm_model_check(lm_engine.arch, lm_engine.params, dev)
     names = [r["name"] for r in records]
     check("flash_attention" in names and any(
         n.startswith("flash_attention[causal") for n in names),
@@ -2204,6 +2708,11 @@ def main() -> int:
         reduced_sample_check(name, sde=path_a[name][0].sde
                              if name == "cifar10-cld" else None)
     reduced_lm_check()
+
+    # ---- 8. lm-train: LM training and the dense configs served, on a card
+    # freed of the earlier paths' nets and engines -------------------------
+    del paths, path_a, lm_engine, lm_serve, att
+    records += lm_train_phase(dev, card, gen)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(smi())

@@ -1,13 +1,19 @@
 """Model and paper configs: `get_arch(name, reduced=False)` for the token
-archs ported so far, `get_diffusion(name, reduced=False)` for the paper's
-diffusion configs."""
+archs ported so far (the dense transformers, which the token engine serves
+and `launch.train.train_lm` trains), `get_diffusion(name, reduced=False)`
+for the paper's diffusion configs.  `ARCH_IDS` keeps the JAX package's
+order."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
 ARCH_MODULES: Dict[str, str] = {
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "llama3-405b": "llama3_405b",
     "gemma3-1b": "gemma3_1b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCH_IDS: List[str] = list(ARCH_MODULES)

@@ -16,7 +16,7 @@ def make(reduced: bool = False, dtype=torch.bfloat16) -> ArchSpec:
                              n_heads=4, n_kv_heads=1, d_head=16, d_ff=128,
                              vocab=256, layer_windows=(16, 16, 16, 16, 16, None),
                              layer_moe=(False,) * 6,
-                             dtype=torch.float32)
+                             dtype=torch.float32, remat=False)
     else:
         cfg = TransformerCfg(name="gemma3-1b", n_layers=26, d_model=1152,
                              n_heads=4, n_kv_heads=1, d_head=256, d_ff=6912,

@@ -22,7 +22,15 @@ This is the only way the two packages compute the same net.
     `embed`, `ln_f` (and `unembed` when untied) and `layers`, the list of
     per-layer dicts in the order the JAX forward runs them — for each
     group g and pattern position pos, `layer_stacks[pos]` sliced at g
-    (layer g * P + pos), then `rem_layers`.
+    (layer g * P + pos), then `rem_layers`.  `to_jax_transformer(params,
+    cfg)` is its inverse, as numpy arrays (`jax_transformer_tree` over
+    tensors: the layers of each pattern position stacked over the
+    groups, the remainder a list).
+  * `lm_train_state_tree(params, opt_state, cfg)` is the (params,
+    AdamWState) tree of a transformer and its optimizer state as the JAX
+    `train_lm` checkpoints it, on the host; `load_lm_train_state` copies
+    such a tree back in place.  The optimizer state's lists follow
+    `transformer.param_list`'s order.
 """
 from __future__ import annotations
 
@@ -139,35 +147,93 @@ def _unstack(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def _tree_tensors(tree: Any) -> Any:
-    if isinstance(tree, Mapping):
-        return {k: _tree_tensors(v) for k, v in tree.items()}
-    return _tensor(np.asarray(tree))
-
-
-def _tree_slice(tree: Any, g: int) -> Any:
-    if isinstance(tree, Mapping):
-        return {k: _tree_slice(v, g) for k, v in tree.items()}
-    return np.asarray(tree)[g]
-
-
-def from_jax_transformer(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
-    """JAX transformer param tree (numpy leaves) -> the port's params."""
+def _from_jax_layout(tree: Mapping[str, Any], cfg, leaf) -> Dict[str, Any]:
+    """A tree in the JAX transformer layout -> the port's, each leaf (a
+    numpy array or a tensor; a group's slice for a stacked one) passed
+    through `leaf`."""
     P = cfg.pattern
     layers: List[Any] = []
     for g in range(cfg.n_groups):
         for pos in range(P):
-            layers.append(_tree_tensors(_tree_slice(tree["layer_stacks"][pos],
-                                                    g)))
-    layers += [_tree_tensors(lp) for lp in tree["rem_layers"]]
+            layers.append(_map(tree["layer_stacks"][pos],
+                               lambda a: leaf(a[g])))
+    layers += [_map(lp, leaf) for lp in tree["rem_layers"]]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, config says "
                          f"{cfg.n_layers}")
-    out = {k: _tensor(np.asarray(tree[k])) for k in ("embed", "ln_f")}
-    if "unembed" in tree:
-        out["unembed"] = _tensor(np.asarray(tree["unembed"]))
+    out = {k: leaf(tree[k]) for k in ("embed", "ln_f", "unembed")
+           if k in tree}
     out["layers"] = layers
     return out
+
+
+def from_jax_transformer(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """JAX transformer param tree (numpy leaves) -> the port's params."""
+    return _from_jax_layout(tree, cfg, lambda a: _tensor(np.asarray(a)))
+
+
+def jax_transformer_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The port's transformer params (or a tree of that structure) -> the
+    JAX layout over the same tensors: `layer_stacks[pos]` stacks layers
+    g * P + pos over the groups g (new tensors), `rem_layers` lists the
+    remainder's dicts."""
+    layers = params["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers, config says "
+                         f"{cfg.n_layers}")
+    P, G = cfg.pattern, cfg.n_groups
+    tree = {k: v for k, v in params.items() if k != "layers"}
+    with torch.no_grad():
+        tree["layer_stacks"] = [
+            _stack([layers[g * P + pos] for g in range(G)]) if G else {}
+            for pos in range(P)]
+    tree["rem_layers"] = list(layers[G * P:])
+    return tree
+
+
+def to_jax_transformer(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The port's transformer params -> the JAX param tree as numpy arrays
+    (bf16 as float32 of the same values), the inverse of
+    `from_jax_transformer`."""
+    return _map(jax_transformer_tree(params, cfg), _to_numpy)
+
+
+def lm_train_state_tree(params: Mapping[str, Any], opt_state, cfg) -> tuple:
+    """(params, AdamWState(step, m, v, master)) in the JAX transformer
+    layout: the tree the JAX `train_lm` checkpoints, on the host.  Each
+    leaf is copied to the host before the layers are stacked, so neither a
+    save nor a resume's template takes device memory, and a restore into
+    this tree's structure lands on the host too.  `opt_state` is the
+    port's AdamW state over `transformer.param_list(params)`."""
+    from .ckpt.store import tree_flatten, tree_unflatten
+    from .optim.adamw import AdamWState
+    structure = tree_flatten(params)[1]
+    tree = lambda ts: jax_transformer_tree(
+        tree_unflatten(structure, [t.detach().cpu() for t in ts]), cfg)
+    return (tree(tree_flatten(params)[0]),
+            AdamWState(step=opt_state.step.cpu(), m=tree(opt_state.m),
+                       v=tree(opt_state.v), master=tree(opt_state.master)))
+
+
+def load_lm_train_state(params: Mapping[str, Any], opt_state, tree: tuple,
+                        cfg) -> None:
+    """Copy a (params, AdamWState) tree of `lm_train_state_tree`'s layout
+    (as `CheckpointStore.restore` returns it) into `params` and
+    `opt_state`, in place."""
+    from .ckpt.store import tree_flatten
+    p_tree, state = tree
+    with torch.no_grad():
+        opt_state.step.copy_(state.step)
+        for dest, sub in ((tree_flatten(params)[0], p_tree),
+                          (opt_state.m, state.m), (opt_state.v, state.v),
+                          (opt_state.master, state.master)):
+            src = tree_flatten(_from_jax_layout(sub, cfg, lambda t: t))[0]
+            if len(src) != len(dest) or any(
+                    a.shape != b.shape for a, b in zip(dest, src)):
+                raise ValueError("the train state's tree does not match "
+                                 "the params")
+            for a, b in zip(dest, src):
+                a.copy_(b)
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

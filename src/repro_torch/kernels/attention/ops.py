@@ -1,6 +1,7 @@
 """Attention dispatch: a CPU tensor runs the plain version, a CUDA tensor
 one of the two forms of the hand-written flash kernel
-(`csrc/attention.cu`), each launch counted as `flash_attention`:
+(`csrc/attention.cu`), each launch counted as `flash_attention` (a
+causal one also as `flash_attention:window` or `flash_attention:global`):
 
   * the DiT form — non-causal, no window, Hq == Hkv, Sq == Sk, q_offset 0,
     head width 32, 64 or 128;
@@ -16,12 +17,14 @@ and f32, which runs on the CUDA cores (`flash_fwd_kernel`,
 sent to the plain version.
 
 Gradients: where grad mode is on and q, k or v requires a gradient, the
-DiT form runs as `DiTAttention`, an autograd Function whose forward is
-the kernel (the plain version on a CPU tensor) and whose backward is the
-plain `attention_bwd_ref` from the saved q, k, v, on either device (the
-JAX package's Pallas kernel has no backward to port).  With grad off the
-path is the forward alone, as before.  The causal form has no gradient
-yet: a CUDA call that needs one raises.
+two forms that train run as the autograd Function `FlashAttention`,
+whose forward is the form's kernel (the plain version on a CPU tensor)
+and whose backward is the plain `attention_bwd_ref` from the saved q, k,
+v, on either device (the JAX package's Pallas kernel has no backward to
+port): the DiT form, and the causal form at q_offset 0 and Sq == Sk (LM
+training; an optional window, GQA).  With grad off the path is the
+forward alone.  A CUDA call that needs a gradient in any other form
+raises.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ Tensor = torch.Tensor
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_WIDTHS = (32, 64, 128)
 LM_HEAD_WIDTHS = (16, 32, 64, 128, 256)
+# the causal form's launches are also counted by instance: with a window
+# (the band skip) or without
+WINDOW_COUNT, GLOBAL_COUNT = ("flash_attention:window",
+                              "flash_attention:global")
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, B, S, H, Dh, dtype, scale, stream
 _ARGTYPES = [_VP] * 4 + [_I] * 5 + [ctypes.c_float, _VP]
@@ -111,24 +118,33 @@ def flash_attention_causal(q: Tensor, k: Tensor, v: Tensor, *,
             1.0 / math.sqrt(Dh), cuda.stream_ptr(q))
     cuda.check("attention", rc, "flash_attention (causal)")
     cuda.count_launch("flash_attention")
+    cuda.count_launch(WINDOW_COUNT if w else GLOBAL_COUNT)
     return out
 
 
-class DiTAttention(torch.autograd.Function):
-    """The DiT form with a gradient: the forward kernel (counted as
-    `flash_attention`; `attention_ref` for a CPU tensor) and the plain
-    backward `attention_bwd_ref`, recomputed from the saved q, k, v."""
+class FlashAttention(torch.autograd.Function):
+    """Either form that trains, with a gradient: the DiT form (`causal`
+    False) or the causal form at q_offset 0 and Sq == Sk with an optional
+    window and GQA (LM training).  The forward is the kernel of that form
+    (`flash_attention` or `flash_attention_causal`, each counted as
+    `flash_attention`; `attention_ref` for a CPU tensor), the backward the
+    plain `attention_bwd_ref`, recomputed from the saved q, k, v."""
 
     @staticmethod
-    def forward(ctx, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                window: Optional[int]) -> Tensor:
         ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
         if cuda.device_of(q) == "cpu":
-            return attention_ref(q, k, v, causal=False)
+            return attention_ref(q, k, v, causal=causal, window=window)
+        if causal:
+            return flash_attention_causal(q, k, v, window=window)
         return flash_attention(q, k, v)
 
     @staticmethod
     def backward(ctx, do: Tensor):
-        return attention_bwd_ref(*ctx.saved_tensors, do)
+        return (*attention_bwd_ref(*ctx.saved_tensors, do, causal=ctx.causal,
+                                   window=ctx.window), None, None)
 
 
 def _dit_form(q: Tensor, k: Tensor, v: Tensor, causal: bool, window,
@@ -138,22 +154,31 @@ def _dit_form(q: Tensor, k: Tensor, v: Tensor, causal: bool, window,
             and q.shape == k.shape and k.shape == v.shape)
 
 
+def _lm_train_form(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                   q_offset) -> bool:
+    return (causal and isinstance(q_offset, int) and q_offset == 0
+            and k.shape == v.shape and k.dim() == q.dim() == 4
+            and q.shape[:2] == k.shape[:2] and q.shape[3] == k.shape[3]
+            and q.shape[2] % k.shape[2] == 0)
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
               window: Optional[int] = None,
               q_offset: Union[int, Tensor] = 0) -> Tensor:
     """Multi-head attention, q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh)."""
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if needs_grad and _dit_form(q, k, v, causal, window, q_offset):
-        return DiTAttention.apply(q, k, v)
+    if needs_grad and (_dit_form(q, k, v, causal, window, q_offset)
+                       or _lm_train_form(q, k, v, causal, q_offset)):
+        return FlashAttention.apply(q, k, v, causal, window)
     if cuda.device_of(q) == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     if needs_grad:
         raise NotImplementedError(
-            "flash_attention has a gradient in its DiT form only (non-causal, "
-            "no window, Hq == Hkv, Sq == Sk); the causal / window / GQA form "
-            "has none until LM training is ported")
+            "flash_attention has a gradient in its DiT form (non-causal, no "
+            "window, Hq == Hkv, Sq == Sk) and its causal form at q_offset 0 "
+            "and Sq == Sk (LM training); not in this one")
     if causal:
         return flash_attention_causal(q, k, v, window=window,
                                       q_offset=q_offset)

@@ -3,8 +3,9 @@
 
 GQA, causal and sliding-window masks as in the JAX package's
 `attention_ref`; scores and softmax in f32, output in q's dtype.  Beside
-it, `attention_bwd_ref`, the plain gradient of the DiT form: the backward
-of the port's DiT attention on both devices.
+it, `attention_bwd_ref`, the plain gradient of the two forms that train:
+the DiT form and the causal / window / GQA form at q_offset 0 and Sq ==
+Sk.  It is the backward of the port's attention on both devices.
 """
 from __future__ import annotations
 
@@ -40,31 +41,62 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
-def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor):
-    """Gradients (dq, dk, dv) of the DiT form of `attention_ref`
-    (non-causal, no window, Hq == Hkv) for the output gradient `do`, each
-    in its input's dtype.  P is recomputed from q and k in f32 and every
-    product is f32:
+def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
+                      causal: bool = False, window: Optional[int] = None):
+    """Gradients (dq, dk, dv) of `attention_ref` for the output gradient
+    `do`, each in its input's dtype, in the two forms that train: the DiT
+    form (non-causal, no window, Hq == Hkv) and the causal form with an
+    optional window and GQA (Hkv dividing Hq) at q_offset 0, Sq == Sk.  P
+    is recomputed from q and k in f32 under `attention_ref`'s masks and
+    every product is f32:
 
         S = q k^T / sqrt(Dh),  P = softmax(S),  dV = P^T dO,
         dP = dO V^T,  dS = P * (dP - rowsum(dP * P)),
         dQ = dS K / sqrt(Dh),  dK = dS^T Q / sqrt(Dh).
 
-    The JAX package takes this gradient through its `attention_ref` (its
-    Pallas kernel has no backward), so this is the reference of the
-    port's DiT attention backward on either device."""
-    if q.shape != k.shape or k.shape != v.shape or do.shape != q.shape:
-        raise ValueError("attention_bwd_ref: the DiT form takes q, k, v and "
-                         "do of one shape (B, S, H, Dh); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+    A fully masked row has P = 0, so it gives nothing; under GQA dK and
+    dV sum over the rep = Hq / Hkv query heads of each kv head.  The JAX
+    package takes this gradient through its `attention_ref` (its Pallas
+    kernel has no backward), so this is the reference of the port's
+    attention backward on either device."""
+    B, S, Hq, Dh = q.shape
+    if k.shape != v.shape or do.shape != q.shape or k.dim() != 4 \
+            or k.shape[0] != B or k.shape[1] != S or k.shape[3] != Dh \
+            or Hq % k.shape[2]:
+        raise ValueError("attention_bwd_ref: q and do of shape (B, S, Hq, "
+                         "Dh), k and v (B, S, Hkv, Dh) with Hkv dividing Hq; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}, {tuple(do.shape)}")
-    scale = math.sqrt(float(q.shape[-1]))
+    Hkv = k.shape[2]
+    scale = math.sqrt(float(Dh))
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
-    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q32, k32) / scale,
-                      dim=-1)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    if not causal and window is None and Hkv == Hq:
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q32, k32) / scale,
+                          dim=-1)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) / scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) / scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if not causal:
+        raise ValueError("attention_bwd_ref: a non-causal call takes the DiT "
+                         "form only (no window, Hq == Hkv)")
+    rep = Hq // Hkv
+    qg = q32.reshape(B, S, Hkv, rep, Dh)
+    dog = do32.reshape(B, S, Hkv, rep, Dh)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k32) / scale
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask = mask & (pos[None, :] > pos[:, None] - window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+    dv = torch.einsum("bhrqk,bqhrd->bkhd", p, dog)
+    dp = torch.einsum("bqhrd,bkhd->bhrqk", dog, v32)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) / scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) / scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dq = torch.einsum("bhrqk,bkhd->bqhrd", ds, k32) / scale
+    dk = torch.einsum("bhrqk,bqhrd->bkhd", ds, qg) / scale
+    return (dq.reshape(B, S, Hq, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

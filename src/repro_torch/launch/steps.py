@@ -1,8 +1,15 @@
 """Step factories: the programs the serving engines and the training loop
 run.
 
+  make_train_step(arch, opt)             one LM training step: the causal-LM
+                                         loss, its gradient over the
+                                         params' flat list, AdamW
+                                         (clipping, f32 masters), in place
   make_prefill_step(arch, max_len)       batched prompt prefill -> (last
                                          position's logits, fresh caches)
+  make_serve_step(arch)                  one-token greedy decode against
+                                         fixed caches (scalar or per-slot
+                                         cache_len)
   make_token_round_step(arch)            one greedy decode token for every
                                          slot of a TokenState, with the
                                          per-slot bookkeeping on the device
@@ -55,11 +62,48 @@ def make_diffusion_train_step(spec, opt_cfg):
     return train_step
 
 
+def make_train_step(arch, opt_cfg):
+    """A step (params, opt_state, batch) -> {"loss", "lr", "grad_norm"}
+    (0-d device tensors) that takes `arch.loss` of `batch` ("labels", and
+    "tokens" or "embeddings"), its gradient with respect to
+    `transformer.param_list(params)` (whose tensors must require grad),
+    and one AdamW update of the params and of `opt_state` (an
+    `optim.adamw.AdamWState` over the same list) in place, as the JAX step
+    returns them new."""
+    from ..models.transformer import param_list
+    from ..optim.adamw import adamw_update
+
+    def train_step(params, opt_state, batch):
+        leaves = param_list(params)
+        with torch.enable_grad():
+            loss = arch.loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        metrics = adamw_update(grads, opt_state, leaves, opt_cfg)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    return train_step
+
+
 def make_prefill_step(arch, max_len: int):
     def prefill_step(params, batch):
         return arch.prefill(params, batch, max_len)
 
     return prefill_step
+
+
+def make_serve_step(arch):
+    """One-token greedy decode: (params, token (B, 1), caches, cache_len)
+    -> (next_token (B, 1) int32, logits (B, vocab), caches).  `cache_len`
+    is a scalar (every row at one position) or a (B,) per-slot tensor;
+    the caches are updated in place."""
+    @torch.no_grad()
+    def serve_step(params, token, caches, cache_len):
+        logits, caches = arch.decode(params, token, caches, cache_len)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return next_token, logits, caches
+
+    return serve_step
 
 
 def make_token_round_step(arch):

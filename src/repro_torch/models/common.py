@@ -1,5 +1,6 @@
 """Shared neural components: initializers, norms, rotary embedding, the
-(gated) MLP and the attention block with its two KV-cache branches.
+(gated) MLP, the attention block with its two KV-cache branches and the
+causal-LM loss.
 
 Parameters keep the JAX package's orientation: a dense weight is
 (d_in, d_out) and is applied as `x @ W`.  Norms compute in f32 and cast
@@ -110,6 +111,9 @@ def activation(name: str, x: Tensor) -> Tensor:
         return F.silu(x)
     if name == "gelu":                 # jax.nn.gelu's default: tanh form
         return F.gelu(x, approximate="tanh")
+    if name == "relu2":                # squared ReLU (Primer / nemotron-4)
+        r = F.relu(x)
+        return r * r
     raise ValueError(name)
 
 
@@ -205,3 +209,19 @@ def attn_apply(p: Params, x: Tensor, *, n_heads: int, n_kv: int, d_head: int,
     out = attn_ops.attention(q, k_full, v_full, causal=causal, window=window,
                              q_offset=q_off)
     return out.reshape(B, Sq, n_heads * d_head) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def causal_lm_loss(logits: Tensor, labels: Tensor, ignore: int = -1) -> Tensor:
+    """Mean cross-entropy over the positions whose label is not `ignore`:
+    logits (B, S, V) upcast to f32, labels (B, S) int; the target logit is
+    gathered at max(label, 0), and the sum is divided by max(count, 1), as
+    in the JAX package."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    tgt = torch.gather(logits32, -1,
+                       labels.long().clamp_min(0)[..., None])[..., 0]
+    valid = (labels != ignore).float()
+    return torch.sum((lse - tgt) * valid) / torch.clamp_min(valid.sum(), 1.0)

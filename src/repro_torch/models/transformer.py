@@ -1,8 +1,10 @@
-"""Decoder-only transformer LM family, the dense form (gemma3-1b's):
+"""Decoder-only transformer LM family, the dense form (gemma3-1b,
+deepseek-coder-33b, nemotron-4-15b, llama3-405b, internvl2-1b):
 
   * GQA attention with RoPE (any n_kv_heads, incl. MQA n_kv = 1)
   * a per-pattern-position sliding window (gemma3's 5 local : 1 global)
-  * gated (SwiGLU) or plain FFN, RMSNorm with the (1 + gamma) scale
+  * gated (SwiGLU) or plain FFN (squared ReLU for nemotron-4), RMSNorm
+    with the (1 + gamma) scale
 
 The JAX package scans over pattern groups with params stacked
 (n_groups, ...) per pattern position, then runs unrolled remainder layers.
@@ -11,6 +13,18 @@ them — layer l = g * P + pos of the groups, then the remainder layers —
 and layer l uses the window of pattern position l % P (for the remainder
 layers too).  `convert.from_jax_transformer` lays a JAX tree out in that
 order.  Caches are per layer: a list of (k, v), each (B, max_len, Hkv, Dh).
+
+Training (`lm_loss`) runs `forward` with grad and without caches.  With
+`cfg.remat` every layer runs under `torch.utils.checkpoint`
+(non-reentrant): its activations are recomputed in the backward from the
+layer's input, which is all a layer keeps.  The JAX package checkpoints
+each scanned pattern group (`jax.checkpoint`, nothing saveable) and not
+its remainder layers; the values do not depend on where the cuts fall,
+and one layer a cut keeps the recompute's peak at one layer's
+activations, with no scan here to give the group a meaning.  `prefill`
+and `decode_step` run without grad.  `forward(..., embeddings=)` feeds
+(B, S, D) embeddings in place of token ids (an arch whose modality
+frontend is a stub: `ArchSpec.input_mode` "embeddings").
 
 MoE fields stay in the config for parity with the JAX package's, but an
 MoE layer is not ported: `init_params` refuses a config that has one.
@@ -21,7 +35,9 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ckpt.store import tree_flatten
 from . import common
 
 Tensor = torch.Tensor
@@ -49,6 +65,7 @@ class TransformerCfg:
     moe: Optional[Any] = None
     tie_embeddings: bool = True
     dtype: Any = torch.float32
+    remat: bool = True
 
     @property
     def pattern(self) -> int:
@@ -118,15 +135,26 @@ def _block(p: Params, cfg: TransformerCfg, layer: int, x: Tensor,
     return x + common.mlp_apply(p["mlp"], h, act=cfg.act), new_cache
 
 
-def _trunk(params: Params, cfg: TransformerCfg, tokens: Tensor,
-           caches: Optional[Cache], cache_len) -> Tuple[Tensor, Optional[Cache]]:
-    """Every layer and the final norm: (B, S) ids -> (B, S, D) hidden."""
-    x = params["embed"][tokens.long()]
+def _trunk(params: Params, cfg: TransformerCfg, tokens: Optional[Tensor],
+           caches: Optional[Cache], cache_len,
+           embeddings: Optional[Tensor] = None
+           ) -> Tuple[Tensor, Optional[Cache]]:
+    """Every layer and the final norm: (B, S) ids, or (B, S, D)
+    `embeddings` cast to cfg.dtype, -> (B, S, D) hidden."""
+    if embeddings is not None:
+        x = embeddings.to(cfg.dtype)
+    else:
+        x = params["embed"][tokens.long()]
     positions = common.decode_positions(x.shape[1], cache_len, x.device)
     rope = (common.rope_table(positions, cfg.d_head, cfg.rope_theta)
             if cfg.rope_theta > 0 else None)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_caches = None if caches is None else []
     for layer, p in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_remat_block, p, cfg, layer, x, rope,
+                           use_reentrant=False)
+            continue
         cache = None if caches is None else caches[layer]
         x, nc = _block(p, cfg, layer, x, rope, kv_cache=cache,
                        cache_len=cache_len)
@@ -135,22 +163,44 @@ def _trunk(params: Params, cfg: TransformerCfg, tokens: Tensor,
     return common.rms_norm(x, params["ln_f"]), new_caches
 
 
+def _remat_block(p: Params, cfg: TransformerCfg, layer: int, x: Tensor,
+                 rope) -> Tensor:
+    return _block(p, cfg, layer, x, rope)[0]
+
+
 def _logits(params: Params, cfg: TransformerCfg, x: Tensor) -> Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["unembed"]
 
 
-@torch.no_grad()
-def forward(params: Params, cfg: TransformerCfg, tokens: Tensor, *,
+def forward(params: Params, cfg: TransformerCfg, tokens: Optional[Tensor],
+            *, embeddings: Optional[Tensor] = None,
             caches: Optional[Cache] = None,
             cache_len=None) -> Tuple[Tensor, Optional[Cache]]:
-    """tokens: (B, S) int ids.  Returns (logits (B, S, vocab), caches).
+    """tokens: (B, S) int ids (or `embeddings` (B, S, D) for a stubbed
+    frontend).  Returns (logits (B, S, vocab), caches).  Runs with grad
+    where grad mode is on (training; remat per layer with `cfg.remat`).
     With `caches`, runs in cached mode: a scalar `cache_len` writes the S
     new K/V rows at that position (prefill: 0); a (B,) tensor is the
     per-slot one-token decode."""
-    x, new_caches = _trunk(params, cfg, tokens, caches, cache_len)
+    x, new_caches = _trunk(params, cfg, tokens, caches, cache_len,
+                           embeddings)
     return _logits(params, cfg, x), new_caches
+
+
+def lm_loss(params: Params, cfg: TransformerCfg, tokens: Optional[Tensor],
+            labels: Tensor, embeddings: Optional[Tensor] = None) -> Tensor:
+    """The causal-LM loss of the uncached forward (the training loss)."""
+    logits, _ = forward(params, cfg, tokens, embeddings=embeddings)
+    return common.causal_lm_loss(logits, labels)
+
+
+def param_list(params: Params) -> List[Tensor]:
+    """The params' tensors in one fixed order (sorted keys, layers in
+    order): the list AdamW updates and `convert.lm_train_state_tree`
+    lays out as the JAX tree."""
+    return tree_flatten(params)[0]
 
 
 def init_cache(cfg: TransformerCfg, batch: int, max_len: int, dtype=None,

@@ -1,1 +1,1 @@
-"""Diffusion model specs (training itself is not ported yet)."""
+"""Diffusion model specs (`DiffusionSpec`) and the DSM/HSM training losses."""

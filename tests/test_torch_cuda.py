@@ -37,10 +37,14 @@ Tiers (kernel vs plain version on the same card):
     rounding to bf16 at the end); ei_update at q 0-4, the history stacked
     or as separate rows, in the 16-byte and the scalar instance, a
     misaligned row on the scalar one;
-  * the DiT attention's gradient (the forward kernel inside an autograd
+  * the attention's gradient in its DiT form and its causal form (window
+    or global, rep 1 and 7; the forward kernel inside an autograd
     Function, the plain backward): dq, dk, dv against torch autograd
     through the plain version in f32, f32 within 1e-5 of each gradient's
     scale, bf16 within 2 bf16 ulp; one kernel launch a forward;
+  * three reduced gemma3-1b LM training steps on the card against the
+    CPU: losses within 1e-5 relative, params within 2 lr a step and
+    within 1e-6 for 99%;
   * three reduced cifar10-cld training steps on the card against the CPU:
     losses within 1e-4 relative, the first gradients within 1e-3 of
     scale, params within 2 lr a step (AdamW's sign-like early update) and
@@ -869,8 +873,86 @@ def test_dit_attention_gradient_matches_plain_version(dev, Dh, dtype):
     with torch.no_grad():
         plain = attn_ops.attention(*leaves, causal=False)
     assert plain.grad_fn is None and torch.equal(plain, out.detach())
-    with pytest.raises(NotImplementedError):        # no causal gradient yet
-        attn_ops.attention(*leaves, causal=True)
+    with pytest.raises(NotImplementedError):   # no gradient at q_offset > 0
+        attn_ops.attention(leaves[0][:, :8], *leaves[1:], causal=True,
+                           q_offset=5)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("rep", [1, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_attention_gradient_matches_plain_version(dev, rep, window,
+                                                     dtype):
+    """With grad on, the causal form at q_offset 0 and Sq == Sk (LM
+    training) runs `FlashAttention`: the forward kernel once (counted, and
+    counted as its instance, windowed or global) and the plain backward;
+    the output and dq, dk, dv against torch autograd through the plain
+    version in f32 on the same values: f32 within 2e-5 (output) and 1e-5
+    of each gradient's scale, bf16 within 2 bf16 ulp."""
+    g = torch.Generator().manual_seed(rep)
+    B, S, Hkv, Dh = 2, 160, 2, 64
+    q, do = (torch.randn(B, S, Hkv * rep, Dh, generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, Dh, generator=g).to(dev, dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kc.reset_launches()
+    out = attn_ops.attention(*leaves, causal=True, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    inst = attn_ops.WINDOW_COUNT if window else attn_ops.GLOBAL_COUNT
+    assert n["flash_attention"] == n[inst] == 1
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_leaves, causal=True, window=window)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    for a, b, tol in [(out.detach(), ref_out.detach(), 2e-5)] + [
+            (a, b, 1e-5) for a, b in zip(got, want)]:
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+        else:
+            assert _bf16_ulps(a, b.to(dtype)) <= 2
+
+
+def test_reduced_lm_train_steps_card_match_cpu(dev):
+    """Three `make_train_step` steps of reduced gemma3-1b (f32, remat off:
+    one flash_attention launch a layer a step) on the card and on the CPU
+    from the same weights and batches: losses within 1e-5 relative, the
+    params within 2 lr a step everywhere and within 1e-6 for 99%."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import Arch
+    from repro_torch.models.transformer import param_list
+    from repro_torch.optim.adamw import AdamWCfg, adamw_init
+    arch = Arch(get_arch("gemma3-1b", reduced=True))
+    cfg = AdamWCfg(lr=3e-4, warmup_steps=5, total_steps=3)
+    pipe = TokenPipeline(arch.cfg.vocab, 64, 4, seed=0)
+    from repro_torch.ckpt.store import tree_flatten, tree_unflatten
+    params = {"cpu": arch.init(seed=0, device="cpu")}
+    leaves, structure = tree_flatten(params["cpu"])
+    params["cuda"] = tree_unflatten(structure, [t.to(dev) for t in leaves])
+    for p in params.values():
+        for t in param_list(p):
+            t.requires_grad_()
+    states = {d: adamw_init(param_list(p), cfg) for d, p in params.items()}
+    step_fn = steps.make_train_step(arch, cfg)
+    kc.reset_launches()
+    for i in range(3):
+        tokens, labels = (torch.from_numpy(x) for x in pipe.batch_at(i))
+        m = {d: step_fn(p, states[d], {"tokens": tokens.to(d),
+                                       "labels": labels.to(d)})
+             for d, p in params.items()}
+        assert abs(float(m["cuda"]["loss"]) - float(m["cpu"]["loss"])) \
+            <= 1e-5 * abs(float(m["cpu"]["loss"]))
+    assert kc.launches()["flash_attention"] == 3 * arch.cfg.n_layers
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().ravel()
+                       for a, b in zip(param_list(params["cuda"]),
+                                       param_list(params["cpu"]))])
+    assert float(diffs.max()) <= 2 * cfg.lr * 3
+    assert float((diffs > 1e-6).float().mean()) <= 1e-2
 
 
 def _reduced_cld(grid_substeps=1):

@@ -158,14 +158,14 @@ def test_attention_bwd_ref(shape):
 
 
 def test_attention_autograd_goes_through_the_function():
-    """On the CPU the DiT form with grad runs `DiTAttention` (forward
+    """On the CPU the DiT form with grad runs `FlashAttention` (forward
     `attention_ref`, backward `attention_bwd_ref`); without grad, the plain
     forward alone, bit for bit the same values."""
     from repro_torch.kernels.attention import ops
     x = torch.randn(2, 8, 2, 16, generator=torch.Generator().manual_seed(1))
     q = x.clone().requires_grad_()
     out = ops.attention(q, x, x, causal=False)
-    assert out.grad_fn is not None and "DiTAttention" in type(
+    assert out.grad_fn is not None and "FlashAttention" in type(
         out.grad_fn).__name__
     with torch.no_grad():
         assert torch.equal(out, ops.attention(x, x, x, causal=False))

@@ -2,7 +2,7 @@
 cifar10-cld lowers the loss and hands a net to the sampler (the claim of
 `tests/test_train_integration.py`), the sampler reads the trained net as
 the JAX package's does, and the training CLI (`repro_torch.launch.train`)
-checkpoints, resumes and refuses LM training.
+checkpoints, resumes and dispatches `--arch` to LM training.
 
 The CLD runs use `grid_substeps=1`: its R_t grid solve costs ~9 s a CLD
 instance at the default 8 substeps.  The CLI runs use cifar10-ddpm
@@ -160,8 +160,9 @@ def test_train_driver_runs_and_resumes():
             == ["step_2", "step_4"]
         assert ttrain.main(common + ["--steps", "6", "--resume"]) == 0
         assert open(os.path.join(d, "latest")).read() == "step_6"
-    with pytest.raises(NotImplementedError, match="LM training"):
-        ttrain.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu"])
+    assert ttrain.main(["--arch", "gemma3-1b", "--reduced", "--steps", "1",
+                        "--batch", "2", "--seq-len", "8", "--log-every", "0",
+                        "--device", "cpu"]) == 0
 
 
 def test_resume_matches_uninterrupted_run():
