@@ -77,7 +77,22 @@ hand-off from the loss to the sampler witnessed by the training data's
 exact eps (its loss against the trained net's, zero's and its
 negation's; its samples on the data's modes).  Then the reduced configs
 on the card are checked against the plain versions on the CPU (engine samples, path A samples;
-gemma3-1b's logits and token streams).  Last, on a card freed of the
+gemma3-1b's logits and token streams).  Then online serving, "stream":
+one DiffusionEngine over the three full-width families (their nets of the
+paths above) `serve_stream`s a seeded Poisson trace of 12 requests at NFE
+10 (q 2, the corrector, lambda 0.5; the precision class cycling f32 /
+bf16 / int8; a minority of higher priority with deadlines, which
+preempt), every round's dispatches checked against the host shadow's
+(family, precision) classes and every dispatch's launches against its
+class (the int8 class runs the f32 flash kernel); every result must equal
+the request served alone bitwise, each bf16-class sample the f32 class's,
+each family's int8 eps within `NET_TOLERANCES`, the parking table empty;
+gemma3-1b's TokenEngine streams five requests with a preemption (each
+equal to its uninterrupted run bitwise); `Router.serve` over two
+cifar10-ddpm engines equals one engine's `serve_stream` bitwise; and
+round_fused / round_predict at kf 1 in the K 2 pool (foreign rows frozen
+bitwise), dct2 on the pool's kf slice and the f32 flash kernel at the
+DiT's shape are held against their plain versions and timed.  Last, on a card freed of the
 earlier paths, "lm-train": the causal / window / GQA attention's
 gradient (`FlashAttention`: the forward kernel, the plain backward) against
 autograd through the plain version at the training shapes (4, 1024, 4,
@@ -2121,6 +2136,460 @@ def likelihood_checks(spec, net, pipe, dev, card) -> None:
           "did not run the attention kernel")
 
 
+# ---- stream: online serving at full width ------------------------------------
+# a three-family engine serving one seeded arrival stream: by arrival, the
+# family, sampler fields and urgency of each request; NFE 10 throughout,
+# the precision class cycling f32 / bf16 / int8 by request
+STREAM_FAMILIES = {"vpsde": "cifar10-ddpm", "cld": "cifar10-cld",
+                   "bdm": "cifar10-bdm"}
+STREAM_KINDS = [
+    dict(family="cld", q=2), dict(family="vpsde", q=2),
+    dict(family="bdm", lam=0.5), dict(family="cld", corrector=True),
+    dict(family="vpsde", lam=0.5), dict(family="bdm", q=2),
+    dict(family="vpsde", q=2, priority=2),
+    dict(family="cld", q=2, corrector=True),
+    dict(family="bdm", priority=3), dict(family="cld", lam=0.5),
+    dict(family="vpsde", corrector=True, priority=1),
+    dict(family="bdm", q=2)]
+STREAM_NFE, STREAM_SEED, STREAM_RATE = 10, 3, 0.8
+# the token stream: prompts of distinct lengths (so every admission wave is
+# one request, its prefill at width 1 as when served alone), the last an
+# urgent request that arrives while the four slots are busy
+TOKEN_STREAM = [(0.0, 96, 32, {}), (0.0, 97, 32, {}), (1.0, 98, 32, {}),
+                (1.0, 99, 32, {}), (6.0, 100, 16,
+                                    dict(priority=2, deadline=30.0))]
+
+
+def stream_requests():
+    """The stream's seeded Poisson trace (a new one a call: a trace is
+    consumed as it is served)."""
+    from repro_torch.models.quantize import PRECISIONS
+    from repro_torch.serve import ServeRequest, poisson_trace
+
+    def make(i, rng):
+        kw = dict(STREAM_KINDS[i])
+        if kw.get("priority"):
+            kw["deadline"] = float(rng.integers(15, 30))
+        return ServeRequest(rid=i, seed=500 + i, nfe=STREAM_NFE,
+                            precision=PRECISIONS[i % len(PRECISIONS)], **kw)
+
+    return poisson_trace(make, n=len(STREAM_KINDS), rate=STREAM_RATE,
+                         seed=STREAM_SEED)
+
+
+def dispatch_want(spec, prec: str, corr: bool) -> dict:
+    """The launches one round-step dispatch of class (spec's family, prec)
+    makes on the card: one DiT eval (two with the corrector), each layer's
+    attention one flash launch (the f32 kernel in the int8 class, whose
+    dequantized weights are f32); one commit, one predictor with the
+    corrector; BDM adds its noise draw and a dct2 around every eval and on
+    the noise."""
+    evals = 1 + corr
+    layers = spec.score_cfg.n_layers
+    bdm = spec.sde.packed_k == 1 and not spec.sde.canonical_noise_is_reshape
+    return {"flash_attention": layers * evals,
+            "flash_attention:f32": layers * evals if prec == "int8" else 0,
+            "round_fused": 1, "round_predict": int(corr),
+            "step_noise": int(bdm), "dct2": (2 * evals + 1) if bdm else 0}
+
+
+def instrument(engine):
+    """Record every round-step dispatch of `engine` as (class,
+    with_corrector, its launch counts), and fail unless each round
+    dispatches exactly the (family, precision) classes of the host
+    shadow's active slots, in (family) x (precision) order, each with the
+    corrector if one of its slots wants it.  Returns (the dispatch log,
+    a function that removes the instrumentation)."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.models.quantize import PRECISIONS
+    log_, steps, round_ = [], dict(engine._steps), engine._round
+
+    def wrap(cls, step):
+        def dispatch(params, state, bank, with_corrector=False):
+            before = kc.launches()
+            out = step(params, state, bank, with_corrector=with_corrector)
+            after = kc.launches()
+            log_.append((cls, with_corrector,
+                         {k: n - before.get(k, 0) for k, n in after.items()
+                          if n != before.get(k, 0)}))
+            return out
+        return dispatch
+
+    def checked_round():
+        want = {}
+        for s in engine.slots.active():
+            cls = (s.data["family"], s.data["prec"])
+            want[cls] = want.get(cls, False) or s.data["pc"]
+        order = [(f, p) for f in engine.families for p in PRECISIONS
+                 if (f, p) in want]
+        n0 = len(log_)
+        round_()
+        got = [(c, corr) for c, corr, _ in log_[n0:]]
+        check(got == [(c, want[c]) for c in order], "[stream] a round "
+              f"dispatched {got}, the shadow's classes are {want}")
+
+    engine._steps = {cls: wrap(cls, st) for cls, st in steps.items()}
+    engine._round = checked_round
+
+    def remove():
+        engine._steps = steps
+        del engine._round
+    return log_, remove
+
+
+def stream_kernel_records(engine, dispatches, counts, gen, dev):
+    """The new modes of this path's kernels against their plain versions,
+    timed: round_fused and round_predict at kf 1 in the K 2 pool with
+    foreign (family, precision) rows (VPSDE with the noise drawn in the
+    kernel, BDM with it streamed), dct2 on the copied kf slice of the pool,
+    and flash_attention in f32 at the DiT's shape (the int8 class)."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.dct2 import ops as dct_ops
+    from repro_torch.kernels.dct2 import ref as dct_ref
+    from repro_torch.kernels.round_fused import ops as rf
+    from repro_torch.kernels.round_fused import ref as rf_ref
+    bank, st = engine._bank, engine.state
+    K, Qb, D = st.u.shape[1], st.hist.shape[1], st.u.shape[2]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    by_fam = lambda fam, key: sum(c.get(key, 0) for (f, _), _, c in
+                                  dispatches if f == fam)
+    src = "src/repro_torch/csrc/round_fused.cu"
+    recs = []
+    for fam in ("vpsde", "bdm"):
+        spec = engine.specs[fam]
+        sde, fi = spec.sde, engine.cache.fam_index(fam)
+        streamed = not sde.canonical_noise_is_reshape
+        mine = [c for c in range(len(engine.cache))
+                if engine.cache.configs[c].family == fam]
+        cfg = i32([mine[j % len(mine)] for j in range(BATCH)])
+        kstep = i32([0, 4, 8, 9])
+        kc_ = torch.minimum(kstep, bank.n_steps[cfg] - 1)
+        # slot 1: another precision class of the family; slot 2: another
+        # family (cld); slot 0 retired; slot 3 this variant's
+        fam_ = i32([fi, fi, engine.cache.fam_index("cld"), fi])
+        prec = i32([0, 2, 0, 0])
+        active = torch.tensor([False, True, True, True], device=dev)
+        keys = prng_keys(dev)
+        u, hist = rnd(BATCH, K, D), rnd(BATCH, Qb, K, D)
+        eps_c, eps_n = rnd(BATCH, 1, D), rnd(BATCH, 1, D)
+        args = (u, hist, kstep, kc_, cfg, fam_, prec, keys, active, bank,
+                eps_c)
+        kw = dict(sde=sde, state_shape=sde.state_shape(DATA), kf=1,
+                  fam_index=fi, prec_index=0, with_corrector=True,
+                  eps_n_c=eps_n)
+        noise_c = None
+        if streamed:
+            noise = rf_ref.draw_step_noise(keys, kc_, bank.alg[cfg],
+                                           kw["state_shape"])
+            noise_c = dct_ref.dct2_ref(noise).reshape(BATCH, 1, D)
+        kw_ref = dict(kw, noise_c=noise_c) if streamed else kw
+        fused = lambda: rf.round_fused(*args, eps_n, noise_c, kf=1, n=D,
+                                       fam_index=fi, with_corrector=True)
+        got, want = fused(), rf_ref.round_update_ref(*args, **kw_ref)
+        wrap = rf.round_update(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got[:2], want[:2]))
+        err_w = max(max_err(a, b) for a, b in zip(wrap[:2], want[:2]))
+        det = ~bank.stochastic[cfg]
+        bitwise = torch.equal(got[0], want[0]) and torch.equal(
+            got[1], want[1]) if streamed else torch.equal(got[0][det],
+                                                          want[0][det])
+        frozen = all(torch.equal(got[0][i], u[i]) and torch.equal(
+            got[1][i], hist[i]) for i in (0, 1, 2)) and torch.equal(
+            got[0][3, 1:], u[3, 1:])
+        exact = torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        log(f"[stream] round_fused at kf 1 in K {K} ({fam}, "
+            f"{'streamed' if streamed else 'in-kernel'} noise), foreign "
+            f"rows (another precision, another family, retired) and the "
+            f"padding row frozen bitwise: {frozen}; max abs err {err:.3e} "
+            f"(tol 1e-5), through round_update {err_w:.3e}; "
+            f"{'all' if streamed else 'deterministic'} slots bitwise: "
+            f"{bitwise}; k/active exact: {exact}")
+        check(frozen and exact and bitwise and max(err, err_w) <= 1e-5,
+              f"[stream] round_fused at kf 1 in K {K} ({fam}) disagrees "
+              "with its plain version")
+        ints = rf._stage_ints(kstep, kc_, cfg, fam_, prec, active, bank,
+                              fam_index=fi, prec_index=0, with_corrector=True)
+        blks, dis = rf._stage_factors(bank, cfg, kc_, 1, True)
+        nb, ops = fused_round_need(ints, dis, K=K, Qb=Qb, kf=1, D=D,
+                                   streamed=streamed)
+        recs.append(timed_record(
+            f"round_fused[kf=1 in K={K},{fam}]", "stream", src,
+            "src/repro/kernels/round_fused/kernel.py:293",
+            by_fam(fam, "round_fused"), err, fused, "round_fused_kernel",
+            lambda: rf_ref.round_update_ref(*args, **kw_ref), nb, ops,
+            F32_FLOPS))
+        if fam == "vpsde":
+            pred = rf.round_predict(u, hist, kc_, cfg, bank, eps_c, kf=1)
+            pred_ref = rf_ref.round_predict_ref(u, hist, kc_, cfg, bank,
+                                                eps_c, kf=1)
+            torch.cuda.synchronize()
+            check(torch.equal(pred, pred_ref), "[stream] round_predict at "
+                  f"kf 1 in K {K} is not bitwise its plain version")
+            pblks, pdis = rf._stage_factors(bank, cfg, kc_, 1, False,
+                                            predict_only=True)
+            p_bytes = 4 * (BATCH * D * (1 + (Qb - 1) + 1 + 1) + pblks.numel()
+                           + pdis.numel() + int(torch.unique(pdis).numel()) * D)
+            p_ops = BATCH * D * ((1 + Qb) * 2 + Qb)
+            recs.append(timed_record(
+                f"round_predict[kf=1 in K={K}]", "stream", src,
+                "src/repro/kernels/round_fused/kernel.py:362",
+                by_fam("vpsde", "round_predict") + by_fam("bdm",
+                                                          "round_predict"),
+                max_err(pred, pred_ref),
+                lambda: rf.round_predict_kernel(u, hist, kc_, cfg, bank,
+                                                eps_c, kf=1),
+                "round_predict_kernel",
+                lambda: rf_ref.round_predict_ref(u, hist, kc_, cfg, bank,
+                                                 eps_c, kf=1),
+                p_bytes, p_ops, F32_FLOPS))
+
+    # dct2 on the kf slice of the pool: the strided slice is refused, BDM's
+    # contiguous copy of it (`BDM._dct2`) is transformed
+    pool = rnd(BATCH, K, D)
+    try:
+        dct_ops.dct2(pool[:, :1].reshape(BATCH, *DATA), inverse=True)
+        refused = False
+    except ValueError:
+        refused = True
+    x = pool[:, :1].contiguous().reshape(BATCH, *DATA)
+    got = dct_ops.dct2(x, inverse=True)
+    want = dct_ref.idct2_ref(x)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    log(f"[stream] dct2 on the kf slice of the K {K} pool: the strided "
+        f"slice refused: {refused}; its copy within {err:.3e} of the plain "
+        f"version (tol 1e-6 of max|x| {float(x.abs().max()):.3e})")
+    check(refused and err <= 1e-6 * float(x.abs().max()),
+          "[stream] dct2 on the pool's kf slice")
+    H, W, Ch = DATA
+    ch, cw = (dct_ops.dct_matrix_f32(n, dev) for n in (H, W))
+    rec = timed_record(
+        f"dct2[kf slice of K={K}]", "stream", "src/repro_torch/csrc/dct2.cu",
+        "src/repro/kernels/dct2/kernel.py:98", counts.get("dct2", 0), err,
+        lambda: dct_ops.dct2(x, inverse=True), "dct2_kernel",
+        lambda: dct_ref.idct2_ref(x), 2 * 4 * x.numel(),
+        BATCH * Ch * fast_dct2_ops(H, W), F32_FLOPS,
+        library_fn=lambda: torch.einsum("ih,bijc,jw->bhwc", ch, x, cw))
+    rec["copy_ms"] = time_ms(lambda: pool[:, :1].contiguous())[0]
+    log(f"  BDM's copy of the slice: {rec['copy_ms']:.5f} ms")
+    recs.append(rec)
+
+    # the DiT's attention in the int8 class at full width: f32 on the CUDA
+    # cores; SDPA in f32 the library yardstick
+    cfg_ = engine.spec.score_cfg
+    n, S, Hh, Dh = BATCH, cfg_.n_tokens, cfg_.n_heads, cfg_.d_head
+    q, k, v = (rnd(n, S, Hh, Dh) for _ in range(3))
+    got = attn_ops.attention(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    log(f"[stream] flash_attention f32 at ({n}, {S}, {Hh}, {Dh}) vs plain: "
+        f"max abs err {err:.3e} (tol 2e-5), {ulp_err(got, want):.1f} ulp")
+    check(err <= 2e-5, "[stream] f32 flash_attention beyond tolerance")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs.append(timed_record(
+        "flash_attention[f32,int8 class]", "stream",
+        "src/repro_torch/csrc/attention.cu",
+        "src/repro/kernels/attention/kernel.py:109",
+        counts.get("flash_attention:f32", 0), err,
+        lambda: attn_ops.attention(q, k, v, causal=False), "flash_fwd_kernel",
+        lambda: attention_ref(q, k, v, causal=False),
+        4 * n * S * Hh * Dh * 4, 4 * n * Hh * S * S * Dh, F32_FLOPS,
+        library_fn=lambda: sdpa(qh, kh, vh)))
+    return recs
+
+
+def prng_keys(dev):
+    """Four slots' step-noise keys, as the engine derives them."""
+    from repro_torch import random as prng
+    return torch.stack([prng.to_int32_bits(prng.fold_in(
+        prng.PRNGKey(900 + i, device=dev), 0x5EED)) for i in range(BATCH)])
+
+
+def net_tolerance_check(engine, gen, dev) -> None:
+    """Each family's int8-class eps within `NET_TOLERANCES["int8"]` of its
+    f32 eval, at full width on the card."""
+    from repro_torch.models import quantize as qtz
+    tol = qtz.NET_TOLERANCES["int8"]
+    for fam, spec in engine.specs.items():
+        net = engine.params[fam]
+        x = torch.randn(BATCH, *spec.sde.state_shape(DATA), generator=gen,
+                        device=dev)
+        t = torch.rand(BATCH, generator=gen, device=dev)
+        with torch.no_grad():
+            ref = spec.eps_model(net, x, t).float()
+            lo = qtz.wrap_eps_model(spec.eps_model, "int8", net)(
+                engine._params_for(fam, "int8"), x, t)
+        scale = float(ref.abs().max())
+        excess = float((lo - ref).abs().sub(tol["atol"] * scale
+                                            + tol["rtol"] * ref.abs()).max())
+        log(f"[stream] {fam} int8 eps vs f32: max abs err / max|eps| "
+            f"{max_err(lo, ref) / scale:.3e} (tol: {tol['atol']} of scale + "
+            f"{tol['rtol']} relative; worst margin {excess:.3e})")
+        check(math.isfinite(scale) and excess <= 0,
+              f"[stream] {fam} int8 eps beyond NET_TOLERANCES")
+
+
+def stream_phase(paths, lm_engine, mix, dev, card, gen):
+    """The online serving path at full width: `serve_stream` of a three-
+    family engine with preemption and every precision class, the token
+    engine's stream with a preemption, and the router over two engines.
+    Returns the kernel records of the path's new modes."""
+    import dataclasses as dc
+    from repro_torch.core import SamplerConfig
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.serve import (Arrival, DiffusionEngine, ReplicaSpec,
+                                   Router, RouterConfig, TraceTraffic,
+                                   VirtualClock, serving_metrics)
+    t_phase = time.perf_counter()
+    specs = {fam: paths[name][0] for fam, name in STREAM_FAMILIES.items()}
+    nets = {fam: paths[name][1] for fam, name in STREAM_FAMILIES.items()}
+    engine = DiffusionEngine(specs, nets, batch_size=BATCH,
+                             default_config=SamplerConfig(nfe=STREAM_NFE),
+                             device=dev)
+    reqs = [a.request for a in stream_requests().due(math.inf)]
+    t0 = time.perf_counter()
+    engine._prepare(reqs)                   # Stage I, before the clock
+    for fam in engine.families:
+        for prec in ("bf16", "int8"):
+            engine._params_for(fam, prec)
+    torch.cuda.synchronize()
+    log(f"[stream] engine {engine.families}, K {engine.state.u.shape[1]}, "
+        f"Qb {engine.state.hist.shape[1]}: Stage I of "
+        f"{len(engine.cache)} configs and the bf16 / int8 copies "
+        f"{time.perf_counter() - t0:.2f}s")
+    dispatches, remove = instrument(engine)
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve_stream(stream_requests())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    remove()
+    m = serving_metrics(engine.request_log)
+    log(f"[stream] served {len(results)} requests in {dt:.4f}s, "
+        f"{len(results) / dt:.3f} samples/s ({card}); {engine.n_rounds} "
+        f"rounds, {len(dispatches)} dispatches, {engine.n_polls} polls; "
+        f"preemptions {engine.n_preemptions}, resumes {engine.n_resumes}, "
+        f"log {engine.preemption_log}; p50 / p99 latency "
+        f"{m['p50_latency']} / {m['p99_latency']} rounds, deadline misses "
+        f"{m['deadline_misses']}; launches {counts}")
+    check(sorted(results) == list(range(len(reqs))), "[stream] missing "
+          "results")
+    for rid, x in results.items():
+        check(x.shape == DATA and bool(np.isfinite(x).all()),
+              f"[stream] request {rid}: shape {x.shape} or not finite")
+    check(engine.n_resumes == engine.n_preemptions >= 2,
+          f"[stream] {engine.n_preemptions} preemptions, "
+          f"{engine.n_resumes} resumes (want >= 2, equal)")
+    check(len(engine.parking) == 0, "[stream] rows left parked")
+    check(all(len(set(w)) == 1 for w in engine.wave_log),
+          "[stream] a wave mixed classes")
+    for k in ("round_fused", "round_predict", "flash_attention",
+              "flash_attention:f32", "dct2", "step_noise"):
+        check(counts.get(k, 0) > 0, f"[stream] {k} never launched")
+    bad = [(c, corr, got) for c, corr, got in dispatches
+           if any(got.get(k, 0) != n for k, n in dispatch_want(
+               engine.specs[c[0]], c[1], corr).items())]
+    by_cls = {}
+    for c, corr, _ in dispatches:
+        by_cls[c + (corr,)] = by_cls.get(c + (corr,), 0) + 1
+    log(f"[stream] dispatches by (family, precision, corrector): {by_cls}; "
+        f"each against its expected launches: {len(bad)} differ")
+    check(not bad, f"[stream] dispatches with other launches: {bad[:3]}")
+
+    # every result bitwise that request served alone; bf16 the f32 class
+    t0 = time.perf_counter()
+    same, same_f32 = 0, 0
+    for r in reqs:
+        alone = engine.serve([r])[r.rid]
+        same += bool(np.array_equal(results[r.rid], alone))
+        if r.precision == "bf16":
+            f32 = engine.serve([dc.replace(r, precision="f32")])[r.rid]
+            same_f32 += bool(np.array_equal(results[r.rid], f32))
+    n_bf16 = sum(r.precision == "bf16" for r in reqs)
+    log(f"[stream] streamed == served alone: {same} of {len(reqs)} bitwise; "
+        f"bf16 class == f32 class: {same_f32} of {n_bf16} bitwise "
+        f"({time.perf_counter() - t0:.2f}s)")
+    check(same == len(reqs), "[stream] a streamed result differs from the "
+          "request served alone")
+    check(same_f32 == n_bf16, "[stream] a bf16-class sample differs from "
+          "the f32 class")
+    net_tolerance_check(engine, gen, dev)
+    recs = stream_kernel_records(engine, dispatches, counts, gen, dev)
+    del engine
+    free_card()
+
+    # the token engine: a preempted and resumed request == served alone
+    vocab = lm_engine.arch.cfg.vocab
+    rng = np.random.default_rng(77)
+    from repro_torch.serve import ServeRequest
+    treqs = [ServeRequest(rid=i, workload="token", seed=i, max_new=m,
+                          tokens=rng.integers(2, vocab, size=L)
+                          .astype(np.int32), **kw)
+             for i, (_, L, m, kw) in enumerate(TOKEN_STREAM)]
+    trace = TraceTraffic([Arrival(t, r) for (t, *_), r in
+                          zip(TOKEN_STREAM, treqs)])
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    toks = lm_engine.serve_stream(trace)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    n_tok = sum(len(v) for v in toks.values())
+    log(f"[stream] {LM_ARCH}: {len(toks)} requests, {n_tok} tokens in "
+        f"{dt:.4f}s ({n_tok / dt:.3f} tokens/s, {card}); preemptions "
+        f"{lm_engine.n_preemptions} {lm_engine.preemption_log}, resumes "
+        f"{lm_engine.n_resumes}; launches {counts}")
+    for k in LM_KERNELS:
+        check(counts.get(k, 0) > 0, f"[stream] {LM_ARCH}: {k} never "
+              "launched")
+    check(lm_engine.n_preemptions >= 1 and lm_engine.n_resumes ==
+          lm_engine.n_preemptions and len(lm_engine.parking) == 0,
+          f"[stream] {LM_ARCH}: no preemption, or rows left parked")
+    same = sum(bool(np.array_equal(toks[r.rid],
+                                   lm_engine.serve([r])[r.rid]))
+               for r in treqs)
+    log(f"[stream] {LM_ARCH}: streamed (one preempted and resumed) == "
+        f"served alone: {same} of {len(treqs)} bitwise")
+    check(same == len(treqs), f"[stream] {LM_ARCH}: a resumed request "
+          "differs from its uninterrupted run")
+
+    # the router over two full-width cifar10-ddpm engines == one engine
+    spec, net = paths["cifar10-ddpm"][:2]
+    mk = lambda: DiffusionEngine(spec, net, batch_size=BATCH,
+                                 default_config=SamplerConfig(nfe=STREAM_NFE),
+                                 device=dev)
+    rtrace = lambda: TraceTraffic([Arrival(float(i), r) for i, r in
+                                   enumerate(requests(mix, 700))])
+    router = Router([ReplicaSpec(index=i, batch=BATCH) for i in (0, 1)],
+                    RouterConfig(default_nfe=STREAM_NFE))
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    routed, plan = router.serve(rtrace(), [mk(), mk()])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    solo = mk().serve_stream(rtrace(), clock=VirtualClock())
+    same = sum(bool(np.array_equal(routed[r], solo[r])) for r in solo
+               if r in routed)
+    log(f"[stream] router over 2 cifar10-ddpm engines: {len(routed)} "
+        f"samples in {dt:.4f}s ({[len(s) for s in plan.sub_traces]} per "
+        f"replica), counters {plan.counters}; == one engine's serve_stream: "
+        f"{same} of {len(solo)} bitwise; launches {counts}")
+    for k in PATH_KERNELS["cifar10-ddpm"]:
+        check(counts.get(k, 0) > 0, f"[stream] router: {k} never launched")
+    check(sorted(routed) == sorted(solo) == list(range(N_REQUESTS))
+          and same == len(solo), "[stream] the routed results differ from "
+          "one engine's")
+    log(f"[stream] phase {time.perf_counter() - t_phase:.2f}s")
+    return recs
+
+
 # ---- lm-train: LM training at full width, the dense configs served -----------
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_WARM = 4, 1024, 30, 5
 VLM_ARCH, VLM_STEPS = "internvl2-1b", 10
@@ -2709,7 +3178,10 @@ def main() -> int:
                              if name == "cifar10-cld" else None)
     reduced_lm_check()
 
-    # ---- 8. lm-train: LM training and the dense configs served, on a card
+    # ---- 8. stream: online serving, the precision classes, the router ---
+    records += stream_phase(paths, lm_engine, mix, dev, card, gen)
+
+    # ---- 9. lm-train: LM training and the dense configs served, on a card
     # freed of the earlier paths' nets and engines -------------------------
     del paths, path_a, lm_engine, lm_serve, att
     records += lm_train_phase(dev, card, gen)

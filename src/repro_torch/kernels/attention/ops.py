@@ -1,7 +1,8 @@
 """Attention dispatch: a CPU tensor runs the plain version, a CUDA tensor
 one of the two forms of the hand-written flash kernel
 (`csrc/attention.cu`), each launch counted as `flash_attention` (a
-causal one also as `flash_attention:window` or `flash_attention:global`):
+causal one also as `flash_attention:window` or `flash_attention:global`,
+an f32 DiT-form one also as `flash_attention:f32`):
 
   * the DiT form — non-causal, no window, Hq == Hkv, Sq == Sk, q_offset 0,
     head width 32, 64 or 128;
@@ -46,6 +47,9 @@ LM_HEAD_WIDTHS = (16, 32, 64, 128, 256)
 # (the band skip) or without
 WINDOW_COUNT, GLOBAL_COUNT = ("flash_attention:window",
                               "flash_attention:global")
+# and the DiT form's f32 launches (the CUDA-core kernel: a DiT whose config
+# is bf16 runs it under the int8 precision class, models/quantize.py)
+F32_COUNT = "flash_attention:f32"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, B, S, H, Dh, dtype, scale, stream
 _ARGTYPES = [_VP] * 4 + [_I] * 5 + [ctypes.c_float, _VP]
@@ -76,6 +80,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
             cuda.stream_ptr(q))
     cuda.check("attention", rc, "flash_attention")
     cuda.count_launch("flash_attention")
+    if q.dtype == torch.float32:
+        cuda.count_launch(F32_COUNT)
     return out
 
 

@@ -13,8 +13,11 @@ run.
   make_token_round_step(arch)            one greedy decode token for every
                                          slot of a TokenState, with the
                                          per-slot bookkeeping on the device
-  make_diffusion_round_step(spec, fam)   bank-mode gDDIM round over a
-                                         DiffusionState: score eval, the
+  make_mask_snapshot()                   a host copy of the token done /
+                                         progress mask, taken before the
+                                         online poll's look-ahead round
+  make_diffusion_round_step(spec, fam,   bank-mode gDDIM round over a
+                            prec)        DiffusionState: score eval, the
                                          Eq. 45 predictor + corrector eval
                                          where asked for, and the fused
                                          post-eval commit (one CUDA launch
@@ -36,6 +39,9 @@ run.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
 import torch
 
 
@@ -142,15 +148,55 @@ def make_token_round_step(arch):
     return round_step
 
 
-def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0):
+class MaskSnapshot(NamedTuple):
+    """The token done / progress mask as the double-buffered poll reads
+    it: host copies of `state.active` and `state.n_out`, and on the card
+    the event recorded after the copies (None on the CPU)."""
+    active: torch.Tensor
+    n_out: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+
+    def wait(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Block until the copies landed; (active bool, n_out int32)."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.active.numpy(), self.n_out.numpy()
+
+
+def make_mask_snapshot():
+    """A snapshot (active, n_out) -> `MaskSnapshot` for the double-buffered
+    online poll (`ServeLoop.serve_stream`).  The loop takes it before it
+    queues the look-ahead round, then waits on it: on the card the mask is
+    copied into pinned host memory without blocking and an event is
+    recorded after the copy, so the wait ends when the copy lands and round
+    k + 1 runs meanwhile (a `.cpu()` at the wait would also wait for round
+    k + 1, queued on the same stream before it).  On the CPU it is a
+    copy."""
+    def snap(active: torch.Tensor, n_out: torch.Tensor) -> MaskSnapshot:
+        if active.device.type != "cuda":
+            return MaskSnapshot(active.clone(), n_out.clone(), None)
+        host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                for x in (active, n_out)]
+        for h, x in zip(host, (active, n_out)):
+            h.copy_(x, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(active.device))
+        return MaskSnapshot(host[0], host[1], ready)
+
+    return snap
+
+
+def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0,
+                              eps_model=None):
     """Bank-mode gDDIM step over a device-resident `DiffusionState`: the
     Eq. 19/22/45 update plus the per-slot bookkeeping — advance `k`, retire
     (clear `active`) when a slot reaches its config's NFE, and freeze
     retired and foreign rows so a finished sample survives until the host
     fetches it.
 
-    The step evaluates this spec's score net over the packed batch, and
-    commits only to active slots whose `state.fam` and
+    The step evaluates this spec's score net — `eps_model` overrides it for
+    a low-precision class (`models.quantize.wrap_eps_model`) — over the
+    packed batch, and commits only to active slots whose `state.fam` and
     `state.prec` match this variant (`fam_index`/`prec_index`).  Everything
     stays on the state's device: no value is read back to the host."""
     from ..kernels.round_fused import ops as rf
@@ -160,13 +206,18 @@ def make_diffusion_round_step(spec, fam_index: int = 0, prec_index: int = 0):
     kf = sde.packed_k
     data_shape = tuple(spec.data_shape)
     state_shape = sde.state_shape(data_shape)
-    model = spec.eps_model
+    model = spec.eps_model if eps_model is None else eps_model
 
     @torch.no_grad()
     def round_step(params, state, bank, with_corrector: bool = False):
         kc = torch.minimum(state.k.clamp_min(0),
                            bank.n_steps[state.cfg] - 1)
         t = bank.t_cur[state.cfg, kc]
+        # a VPSDE or BDM family (kf 1) in a pool packed for CLD (K 2): the
+        # slice is a strided view.  The DiT copies its input in patchify,
+        # and BDM's decanonicalize copies it before the dct2 kernel, which
+        # takes contiguous tensors only (`BDM._dct2`); at K == kf the slice
+        # is the whole, contiguous tensor
         ub = state.u[:, :kf]
         eps = model(params, sde.decanonicalize(ub, data_shape), t)
         eps_c = sde.canonicalize(eps).contiguous()

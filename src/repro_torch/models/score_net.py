@@ -11,7 +11,10 @@ axis are an `nn.ModuleList` here.  Weights are (d_in, d_out) and applied as
 `x @ W`, so `convert.from_jax_params` carries a JAX param tree across
 without transposes.  The compute dtype is the config's (bf16 at full
 width): the input is cast to it after patchify and the norms compute in f32
-and cast back, where the JAX package casts.
+and cast back, where the JAX package casts.  A DiT handed params of
+another dtype (a low-precision class, `models/quantize.py`) keeps those
+casts as rounding points and computes in the params' dtype, as JAX's
+promotion does.
 
 Weights are created with `requires_grad=False`, so serving builds no
 autograd graph; training turns gradients on with `net.requires_grad_()`.
@@ -203,10 +206,14 @@ class DiT(nn.Module):
             x = u.permute(0, 3, 1, 2)
         # patchify: (B, cm, H, W) -> (B, T, patch_dim)
         x = x.reshape(B, cm, n_side, P, n_side, P).permute(0, 2, 4, 1, 3, 5)
-        x = x.reshape(B, n_side * n_side, cm * P * P).to(cfg.dtype)
+        # the casts to cfg.dtype are rounding points; the compute dtype is
+        # the params' (an int8-class eval at full width hands f32 params,
+        # models/quantize.py), equal to cfg.dtype otherwise
+        cd = self.patch_in.dtype
+        x = x.reshape(B, n_side * n_side, cm * P * P).to(cfg.dtype).to(cd)
 
         h = x @ self.patch_in + self.pos[None]
-        te = timestep_embedding(t, 256).to(cfg.dtype)
+        te = timestep_embedding(t, 256).to(cfg.dtype).to(cd)
         te = F.silu(te @ self.t_mlp1)
         te = F.silu(te @ self.t_mlp2)                          # (B, d)
         te_act = F.silu(te)

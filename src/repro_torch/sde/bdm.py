@@ -178,6 +178,8 @@ class BDM(LinearSDE):
     # The dct2 wrapper takes (B, H, W, Ch) images and raises for any other
     # shape, so these hooks serve image-shaped BDMs only.
     def _dct2(self, u: Tensor, inverse: bool) -> Tensor:
+        # the kernel takes contiguous tensors only; a BDM slot in a pool
+        # packed for CLD (K 2) reaches here as a strided view of its row
         from ..kernels.dct2.ops import dct2
         return dct2(u.contiguous(), inverse=inverse)
 

@@ -7,41 +7,49 @@ length), width-bucketed to the wave's power-of-two size, and scatters the
 wave's cache rows into the slots' caches; the round step decodes every
 slot at its own position (`TokenState.pos`), appends to the slot's output
 row and retires on eos or budget, all on the device.  The host polls the
-small done/progress mask at most every `SYNC_EVERY` rounds — exactly at
+small done/progress mask at most every `sync_every` rounds — exactly at
 the next possible retirement when no eos intervenes — and fetches the
 output row of each finished slot.  On the card each layer's prefill
 attention is the causal flash kernel and each decode round's attention
 the one-launch `decode_attention` kernel.
 
 `DiffusionEngine` runs one gDDIM update for every active slot per round,
-each slot at its own step index k and with its own sampler config (NFE,
-multistep order q, corrector, stochasticity lambda, algorithm).  Per-slot
-Psi/pC/cC/B/P_chol factor pairs are gathered from the `FactoredBank` by
-(state.cfg[b], state.k[b]); the bank lives on the engine's device and is
-re-placed only when a new config grows it.
+each slot at its own step index k and with its own sampler config (SDE
+family, NFE, multistep order q, corrector, stochasticity lambda,
+algorithm) and score-net precision class.  One resident engine serves
+several families at once — a VPSDE preview, a CLD predictor-corrector
+render and a BDM sample — in one slot pool packed at K = k_max (CLD 2;
+VPSDE and BDM rows padded).  Per-slot Psi/pC/cC/B/P_chol factor pairs are
+gathered from the multi-family `FactoredBank` by (state.cfg[b],
+state.k[b]); the bank lives on the engine's device and is re-placed only
+when a new config grows it.
 
-A round is: the score-net eval (the DiT, whose attention is the hand-written
-flash kernel on the card), for corrector configs the Eq. 19a predictor
-iterate (the `round_predict` kernel) and a second eval, and one fused commit
-(the `round_fused` kernel, which also draws the Eq. 22 noise, or for BDM
-reads it from the `step_noise` and `dct2` kernels).  BDM's canonical state
-holds DCT coefficients: its `canonicalize` / `decanonicalize` around every
-eval, on the prior and on each finished sample are the `dct2` kernel.
-Nothing is read back to the host inside a round: the host shadow knows
-exactly when a slot retires (a slot admitted at k = 0 with NFE n retires
-after n rounds), so the only device->host traffic is each finished
-sample.
+A round dispatches one round step per (family, precision) class present
+among the active slots, in (family registration order) x (`PRECISIONS`
+order), each with the corrector variant if any of its slots wants it.  A
+step is: the score-net eval of its family at its precision (the DiT, whose
+attention is the hand-written flash kernel on the card), for corrector
+configs the Eq. 19a predictor iterate (the `round_predict` kernel) and a
+second eval, and one fused commit (the `round_fused` kernel, which also
+draws the Eq. 22 noise, or for BDM reads it from the `step_noise` and
+`dct2` kernels) that writes only the class's own slots.  BDM's canonical
+state holds DCT coefficients: its `canonicalize` / `decanonicalize` around
+every eval, on the prior and on each finished sample are the `dct2`
+kernel.  Nothing is read back to the host inside a round: the host shadow
+knows exactly when a slot retires, so the only device->host traffic is
+each finished sample.
 
-Samples are a pure function of (request seed, sampler config): admission
-draws the prior from PRNGKey(seed) and keys the step noise by
+Samples are a pure function of (request seed, sampler config, precision):
+admission draws the prior from PRNGKey(seed) and keys the step noise by
 fold_in(PRNGKey(seed), _NOISE_SALT), exactly as the JAX engine does, and
-every per-row computation is row-independent.
+every per-row computation is row-independent.  So a request's sample does
+not depend on its neighbours, on their families or precisions, or on a
+preemption: `serve_stream` (loop.py) parks a preempted slot's rows on the
+host (`_suspend_slot`) and restores them bitwise (`_resume_slot`).
 
-A diffusion engine serves one SDE family (VPSDE, CLD or BDM), the "f32"
-precision class (the score net runs in its config's dtype — bf16 at full
-width — and returns f32 eps); a token engine the transformer family.  Both
-serve closed request lists (`serve`) on one device; mesh mode,
-encoder-decoder memory and streaming with preemption are not ported.
+Both engines serve closed request lists (`serve`) and arrival streams with
+deadline admission and preemption (`serve_stream`) on one device; mesh
+mode and encoder-decoder memory are not ported.
 """
 from __future__ import annotations
 
@@ -56,13 +64,13 @@ from .. import random as prng
 from ..core import CoeffCache, SamplerConfig
 from ..kernels.ei_update.ops import pad_channels
 from ..launch import steps as steps_lib
+from ..models import quantize as qtz
 from ..sde.base import family_name
 from .api import ServeRequest
 from .loop import ServeLoop, bucket_pow2
+from .parking import row_fetch, row_restore
 from .scheduler import Scheduler
 from .state import diffusion_state_init, token_state_init
-
-PRECISIONS = ("f32",)
 
 
 def _place(tree: Any, device: torch.device) -> Any:
@@ -84,15 +92,16 @@ class TokenEngine(ServeLoop):
         # results[rid] -> np.ndarray of generated token ids (the prefill's
         # token first), at most max_new of them
 
-    The engine is persistent: repeated `serve()` calls reuse the allocated
-    caches.  `device` defaults to "cuda"; the CPU tests pass device="cpu"
-    and then every kernel wrapper runs its plain version.
+    The engine is persistent: repeated `serve()` / `serve_stream()` calls
+    reuse the allocated caches.  `device` defaults to "cuda"; the CPU tests
+    pass device="cpu" and then every kernel wrapper runs its plain version.
     """
 
     def __init__(self, arch: Any, params: Any, batch_size: int, max_len: int,
-                 eos_id: int = 1, device="cuda"):
+                 eos_id: int = 1, sync_every: int = 8, device="cuda"):
         super().__init__(batch_size,
-                         Scheduler(group_key=lambda r: r.prompt_len))
+                         Scheduler(group_key=lambda r: r.prompt_len),
+                         sync_every=sync_every)
         self.device = torch.device(device)
         self.arch = arch
         self.max_len = max_len
@@ -102,6 +111,7 @@ class TokenEngine(ServeLoop):
         self.state = token_state_init(batch_size, max_len, device=self.device)
         self._prefill = steps_lib.make_prefill_step(arch, max_len)
         self._decode = steps_lib.make_token_round_step(arch)
+        self._snapshot = steps_lib.make_mask_snapshot()
         # throughput counters
         self.n_decode_steps = 0
         self.n_prefill_calls = 0
@@ -173,17 +183,21 @@ class TokenEngine(ServeLoop):
             s.data["n_out"] += 1
 
     @torch.no_grad()
-    def _poll(self, results: Dict[int, np.ndarray]) -> int:
+    def _poll(self, results: Dict[int, np.ndarray], snap=None,
+              lag: int = 0) -> int:
         busy = self.slots.active()
         if not busy:
             return 0
-        # the one steady-state device fetch: the done/progress mask
-        snap = torch.stack([self.state.active.to(torch.int32),
-                            self.state.n_out]).cpu().numpy()
-        active, n_out = snap[0].astype(bool), snap[1]
+        # the one steady-state device fetch: the done/progress mask (in the
+        # double-buffered online poll, the snapshot taken before the
+        # look-ahead round: waiting on it overlaps that round's compute)
+        if snap is None:
+            snap = self._snapshot(self.state.active, self.state.n_out)
+        active, n_out = snap.wait()
         finished = [s for s in busy if not active[s.index]]
         if finished:
-            # retired rows are frozen, so the live out buffer is exact
+            # retired rows are frozen, so the live out buffer is exact even
+            # with a look-ahead round in flight
             out = self.state.out.cpu().numpy()
             for s in finished:
                 n = int(n_out[s.index])
@@ -191,8 +205,29 @@ class TokenEngine(ServeLoop):
                 self.n_tokens_out += n
                 self.slots.release(s.index)
         for s in self.slots.active():
-            s.data["n_out"] = int(n_out[s.index])
+            # resync the shadow from the snapshot, plus the rounds
+            # dispatched after it (`lag`: the online look-ahead)
+            s.data["n_out"] = int(n_out[s.index]) + lag
         return len(finished)
+
+    def _poll_snapshot(self):
+        return self._snapshot(self.state.active, self.state.n_out)
+
+    @torch.no_grad()
+    def _suspend_slot(self, slot):
+        # the state row (fetched while still active) and every layer's
+        # (k, v) cache row; then the device row stops advancing
+        i = slot.index
+        payload = (row_fetch(self.state, i), row_fetch(self.caches, i))
+        self.state.active[i] = False
+        return payload
+
+    @torch.no_grad()
+    def _resume_slot(self, request: ServeRequest, shadow: dict, payload,
+                     index: int) -> None:
+        state_row, cache_row = payload
+        row_restore(self.caches, cache_row, index)
+        row_restore(self.state, state_row, index)
 
     def _remaining_lb(self, slot) -> int:
         return slot.data["budget"] - slot.data["n_out"]
@@ -208,44 +243,83 @@ class DiffusionEngine(ServeLoop):
             ServeRequest(rid=1, seed=1, nfe=10),              # fast preview
             ServeRequest(rid=2, seed=2, nfe=50, q=2, corrector=True),
             ServeRequest(rid=3, seed=3, nfe=20, lam=0.5),     # stochastic
+            ServeRequest(rid=4, seed=4, precision="int8"),    # int8 weights
         ])
         # results[rid] -> np.ndarray sample in data space
 
-    `device` defaults to "cuda"; the CPU tests pass device="cpu" and then
-    every kernel wrapper runs its plain version.
+    Several families: pass ordered dicts `{family_name: spec}` /
+    `{family_name: net}` (names per `sde.base.family_name`; the first is
+    the default family), and requests pick theirs:
+
+        engine = DiffusionEngine({"vpsde": spec_v, "cld": spec_c,
+                                  "bdm": spec_b},
+                                 {"vpsde": net_v, "cld": net_c,
+                                  "bdm": net_b}, batch_size=16, nfe=20)
+        engine.serve([ServeRequest(rid=0, seed=0),            # vpsde
+                      ServeRequest(rid=1, seed=1, family="cld"),
+                      ServeRequest(rid=2, seed=2, family="bdm", nfe=10)])
+
+    All families share one `data_shape`.  Each family's net lives on the
+    device from construction; a precision class's resident copy of it
+    (`models/quantize.py`) is made on first use and kept.  `device`
+    defaults to "cuda"; the CPU tests pass device="cpu" and then every
+    kernel wrapper runs its plain version.
     """
 
     _NOISE_SALT = 0x5EED              # separates step noise from the prior
     greedy_admit = False              # one cost-class wave per admission
                                       # cycle (see ServeLoop.greedy_admit)
 
-    def __init__(self, spec: Any, params: torch.nn.Module, batch_size: int,
+    def __init__(self, spec: Any, params: Any, batch_size: int,
                  nfe: Optional[int] = None,
                  default_config: Optional[SamplerConfig] = None,
+                 precision: str = "f32", sync_every: int = 8,
                  device="cuda"):
         self.device = torch.device(device)
+        if isinstance(spec, dict):
+            specs = dict(spec)
+            if not isinstance(params, dict) or set(params) != set(specs):
+                raise ValueError("multi-family DiffusionEngine needs params "
+                                 "as a dict with the same family names as "
+                                 "spec")
+            params = {n: params[n] for n in specs}     # align the orders
+        else:
+            name = family_name(spec.sde)
+            specs, params = {name: spec}, {name: params}
+        shapes = {n: tuple(s.data_shape) for n, s in specs.items()}
+        if len(set(shapes.values())) != 1:
+            raise ValueError("all families of one engine must share a "
+                             f"data_shape; got {shapes}")
         if default_config is None:
             default_config = SamplerConfig(nfe=20 if nfe is None else nfe)
         elif nfe is not None:
             raise ValueError("pass either nfe or default_config, not both")
         super().__init__(batch_size,
-                         Scheduler(group_key=lambda r: self._class_of(r)))
-        name = family_name(spec.sde)
-        self.specs = {name: spec}
-        self.spec = spec
-        self._data_shape = tuple(spec.data_shape)
-        self.cache = CoeffCache({name: spec.sde}, kt={name: spec.kt},
+                         Scheduler(group_key=lambda r: self._class_of(r)),
+                         sync_every=sync_every)
+        self.specs = specs
+        self.spec = next(iter(specs.values()))         # the default family
+        self._data_shape = next(iter(shapes.values()))
+        self.cache = CoeffCache({n: s.sde for n, s in specs.items()},
+                                kt={n: s.kt for n, s in specs.items()},
                                 data_shape=self._data_shape,
                                 device=self.device)
-        if default_config.family not in (None, name):
+        if default_config.family not in (None, *specs):
             raise ValueError(f"default_config.family "
                              f"{default_config.family!r} is not resident; "
-                             f"families: {list(self.specs)}")
-        self.default_config = dataclasses.replace(default_config, family=name)
+                             f"families: {list(specs)}")
+        if default_config.family is None:
+            default_config = dataclasses.replace(
+                default_config, family=self.cache.default_family)
+        self.default_config = default_config
         self.cache.index_of(self.default_config)
 
-        self.precision = PRECISIONS[0]
-        self.params = params.to(self.device)
+        self.precision = qtz.check_precision(precision)
+        self.params = {n: p.to(self.device) for n, p in params.items()}
+        # each (family, precision) class's resident params: the f32 class
+        # is the net itself, the others are made on first use
+        self._params_prec: Dict[tuple, Any] = {
+            (n, "f32"): p for n, p in self.params.items()}
         self.state = diffusion_state_init(
             batch_size, self.cache.k_max, int(np.prod(self._data_shape)),
             self.cache.factored_bank.pC_blk.shape[2], device=self.device)
@@ -254,20 +328,20 @@ class DiffusionEngine(ServeLoop):
         self._refresh_bank()
 
         self._steps = {
-            (name, prec): steps_lib.make_diffusion_round_step(
-                spec, fam_index=self.cache.fam_index(name), prec_index=pi)
-            for pi, prec in enumerate(PRECISIONS)}
+            (n, prec): steps_lib.make_diffusion_round_step(
+                s, fam_index=self.cache.fam_index(n), prec_index=pi,
+                eps_model=qtz.wrap_eps_model(s.eps_model, prec,
+                                             self.params[n]))
+            for n, s in specs.items()
+            for pi, prec in enumerate(qtz.PRECISIONS)}
 
         self.n_steps = 0                # step-program dispatches
         self.n_rounds = 0               # serving rounds (>= 1 dispatch each)
         self.n_samples_out = 0
 
-    @staticmethod
-    def _check_precision(precision: str) -> str:
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision {precision!r}: this engine serves "
-                             f"{PRECISIONS}")
-        return precision
+    @property
+    def families(self) -> List[str]:
+        return list(self.specs)
 
     def config_of(self, req: ServeRequest) -> SamplerConfig:
         d = self.default_config
@@ -283,13 +357,25 @@ class DiffusionEngine(ServeLoop):
             family=fam, algorithm=pick(req.algorithm, d.algorithm))
 
     def precision_of(self, req: ServeRequest) -> str:
-        return self._check_precision(
+        """The request's score-net precision class (the engine default when
+        unset); never part of the SamplerConfig, so coefficients are the
+        same at every precision."""
+        return qtz.check_precision(
             self.precision if req.precision is None else req.precision)
 
     def _class_of(self, req: ServeRequest):
         """The admission-wave cost class: (family, corrector, precision)."""
         cfg = self.config_of(req)
         return (cfg.family, cfg.corrector, self.precision_of(req))
+
+    def _params_for(self, fam: str, prec: str):
+        """The (family, precision) class's resident params: quantized from
+        the family's net on first use, then kept."""
+        key = (fam, prec)
+        if key not in self._params_prec:
+            self._params_prec[key] = qtz.quantize_tree(self.params[fam],
+                                                       prec)
+        return self._params_prec[key]
 
     # ---- coefficient-bank placement ----------------------------------------
     def _refresh_bank(self) -> None:
@@ -321,11 +407,18 @@ class DiffusionEngine(ServeLoop):
         for r in requests:
             self.cache.index_of(self.config_of(r))
 
-    def _prior_row(self, key: torch.Tensor) -> torch.Tensor:
-        """(K, D) packed prior sample u(T) ~ N(0, Sigma_T) for one slot."""
-        sde = self.spec.sde
+    def _prior_row(self, fam: str, key: torch.Tensor) -> torch.Tensor:
+        """(K, D) packed prior sample u(T) ~ N(0, Sigma_T) of family `fam`
+        for one slot, padded to the pool's K."""
+        sde = self.specs[fam].sde
         u = sde.canonicalize(sde.prior_sample(key, 1, self._data_shape))
         return pad_channels(u, self.cache.k_max)[0]
+
+    def _project_row(self, fam: str, i: int) -> torch.Tensor:
+        """Slot i's packed row -> its sample in data space, by its family."""
+        sde = self.specs[fam].sde
+        u = self.state.u[i:i + 1, :sde.packed_k]
+        return sde.project_data(sde.decanonicalize(u, self._data_shape))[0]
 
     @torch.no_grad()
     def _admit_wave(self, group: List[ServeRequest], free: List[int]) -> None:
@@ -337,12 +430,12 @@ class DiffusionEngine(ServeLoop):
             i = free.pop(0)
             prec = self.precision_of(req)
             base = prng.PRNGKey(req.seed, device=self.device)
-            st.u[i] = self._prior_row(base)
+            st.u[i] = self._prior_row(cfg.family, base)
             st.hist[i] = 0.0
             st.k[i] = 0
             st.cfg[i] = ci
             st.fam[i] = self.cache.fam_index(cfg.family)
-            st.prec[i] = PRECISIONS.index(prec)
+            st.prec[i] = qtz.prec_index(prec)
             st.keys[i] = prng.to_int32_bits(prng.fold_in(base,
                                                          self._NOISE_SALT))
             st.active[i] = True
@@ -352,35 +445,65 @@ class DiffusionEngine(ServeLoop):
     def _round(self) -> None:
         # one step dispatch per (family, precision) class present among the
         # active slots, with the corrector variant if any of them wants it
-        # — read from the host shadow, no device fetch
+        # — read from the host shadow, no device fetch.  The order is (family
+        # registration order) x (PRECISIONS order), as the JAX engine's
         want: Dict[tuple, bool] = {}
         for s in self.slots.active():
             cls = (s.data["family"], s.data["prec"])
             want[cls] = want.get(cls, False) or s.data["pc"]
-        for cls, step in self._steps.items():
-            if cls not in want:
-                continue
-            self.state = step(self.params, self.state, self._bank,
-                              with_corrector=want[cls])
-            self.n_steps += 1
+        for fam in self.families:
+            for prec in qtz.PRECISIONS:
+                cls = (fam, prec)
+                if cls not in want:
+                    continue
+                self.state = self._steps[cls](
+                    self._params_for(fam, prec), self.state, self._bank,
+                    with_corrector=want[cls])
+                self.n_steps += 1
         self.n_rounds += 1
         for s in self.slots.active():
             s.data["k"] += 1
 
     @torch.no_grad()
-    def _poll(self, results: Dict[int, np.ndarray]) -> int:
-        done = [s for s in self.slots.active() if s.data["k"] >= s.data["nfe"]]
-        if not done:
-            return 0
-        sde, kf = self.spec.sde, self.spec.sde.packed_k
-        rows = torch.stack([self.state.u[s.index, :kf] for s in done])
-        samples = sde.project_data(sde.decanonicalize(rows, self._data_shape))
-        samples = samples.cpu().numpy()
-        for s, x in zip(done, samples):
-            results[s.request.rid] = x
+    def _poll(self, results: Dict[int, np.ndarray], snap=None,
+              lag: int = 0) -> int:
+        # retirement is exactly predictable from the host shadow; `lag`
+        # discounts the rounds dispatched after the poll's observation
+        # point (the online look-ahead), so a slot that finishes inside the
+        # look-ahead round retires at the next poll.  A finished row is
+        # frozen on the device, so reading the live state is exact
+        done = [s for s in self.slots.active()
+                if s.data["k"] - lag >= s.data["nfe"]]
+        for s in done:
+            row = self._project_row(s.data["family"], s.index)
+            # a copy: on the CPU the projection may be a view of the state,
+            # whose row the next admission overwrites
+            results[s.request.rid] = row.to("cpu", copy=True).numpy()
             self.n_samples_out += 1
             self.slots.release(s.index)
         return len(done)
+
+    @torch.no_grad()
+    def _suspend_slot(self, slot):
+        # every DiffusionState leaf is batch-leading: the row (fetched while
+        # still active) is u, hist, k, cfg, fam, prec, keys, active; then
+        # the device row stops advancing
+        row = row_fetch(self.state, slot.index)
+        self.state.active[slot.index] = False
+        return row
+
+    @torch.no_grad()
+    def _resume_slot(self, request: ServeRequest, shadow: dict, payload,
+                     index: int) -> None:
+        qb = self.state.hist.shape[1]
+        hist = payload.hist
+        if hist.shape[0] < qb:
+            # the bank's Qb bucket grew while the row was parked: pad with
+            # zeros, as `_refresh_bank` padded every resident row, so
+            # resumed == never suspended, bitwise, across the regrowth
+            pad = hist.new_zeros((qb - hist.shape[0],) + tuple(hist.shape[1:]))
+            payload = payload._replace(hist=torch.cat([hist, pad], dim=0))
+        row_restore(self.state, payload, index)
 
     def _remaining_lb(self, slot) -> int:
         return slot.data["nfe"] - slot.data["k"]

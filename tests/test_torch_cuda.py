@@ -16,6 +16,10 @@ Tiers (kernel vs plain version on the same card):
     equal at one and two elements a thread; one traced round_update call
     is 1 device kernel (3 for BDM: step_noise, dct2, round_fused) and one
     round_predict call 1, read from the profiler;
+  * round_fused / round_predict at kf 1 in a K 2 pool (a VPSDE or BDM
+    family next to CLD in one engine), mixed fam / prec: the same tiers,
+    and the foreign rows (another family, another precision class, a
+    retired slot) and the padding row bitwise frozen;
   * round_fused in streamed-noise mode (BDM): bitwise against the plain
     version on the same canonical noise; through the whole wrapper (the
     kernel's own draw, the dct2 kernel, the commit) within rtol = atol =
@@ -28,7 +32,8 @@ Tiers (kernel vs plain version on the same card):
     bf16 hi + lo, f32 on the CUDA cores): f32 within 1e-5, bf16 within 2
     bf16 ulp (both round the same f32 softmax once, summed in another
     order);
-  * dct2 / bdm_ei_update: within 1e-6 of max |x| (max |out| for the
+  * dct2 / bdm_ei_update (dct2 also on the kf slice of a K 2 pool, which
+    BDM copies first): within 1e-6 of max |x| (max |out| for the
     update) of the plain version, whose products cuBLAS sums in another
     order (f32 throughout: TF32 is off); bdm_ei_update bitwise equal to
     itself at every cluster size;
@@ -1030,3 +1035,96 @@ def test_checkpoint_from_the_card_restores_on_the_cpu(dev, tmp_path):
                                                           cpu_st))[0]):
         assert a.dtype == b.dtype and b.device.type == "cpu"
         assert torch.equal(bits(a.cpu()), bits(b))
+
+
+# ---- a kf 1 family in a pool packed for CLD (K 2), mixed fam / prec ------
+def _narrow_in_wide(dev, name, corr, D=3072, seed=3):
+    """A VPSDE (in-kernel noise) or BDM (streamed noise) commit at kf 1 on a
+    K 2 state and a K 2 bank, as in a multi-family engine: this variant is
+    (fam 1, prec 0); slot 1 is another precision class of the family, slot
+    2 another family, slot 0 retired — all three foreign rows, which must
+    come back bitwise, padding rows included."""
+    sde, shape, _ = _path(name, D)
+    bank = _bank(dev, D, K=2, PB=5)
+    x = _state(dev, [1, 2, 3, 1] if corr else [0, 3, 2, 4], bank, D, K=2,
+               seed=seed)
+    x["fam"] = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    x["prec"] = torch.tensor([0, 2, 0, 0], dtype=torch.int32, device=dev)
+    x["active"] = torch.tensor([False, True, True, True], device=dev)
+    x["eps_c"] = x["eps_c"][:, :1].contiguous()
+    x["eps_n_c"] = x["eps_n_c"][:, :1].contiguous()
+    args = (x["u"], x["hist"], x["k"], x["kc"], x["cfg"], x["fam"],
+            x["prec"], x["keys"], x["active"], bank, x["eps_c"])
+    kw = dict(sde=sde, state_shape=shape, kf=1, fam_index=1, prec_index=0,
+              with_corrector=corr, eps_n_c=x["eps_n_c"])
+    return bank, x, args, kw
+
+
+@pytest.mark.parametrize("name", ["ddpm", "bdm"])
+@pytest.mark.parametrize("corr", [False, True])
+def test_commit_at_kf_1_in_a_K_2_pool(dev, name, corr):
+    bank, x, args, kw = _narrow_in_wide(dev, name, corr)
+    kc.reset_launches()
+    got = rf.round_update(*args, **kw)
+    pred = rf.round_predict(x["u"], x["hist"], x["kc"], x["cfg"], bank,
+                            x["eps_c"], kf=1)
+    want = rf_ref.round_update_ref(*args, **kw)
+    pred_ref = rf_ref.round_predict_ref(x["u"], x["hist"], x["kc"],
+                                        x["cfg"], bank, x["eps_c"], kf=1)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    assert n["round_fused"] == 1 and n["round_predict"] == 1
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    det = ~bank.stochastic[x["cfg"]]
+    assert torch.equal(got[0][det], want[0][det])
+    assert torch.equal(got[1], want[1])
+    for i in (0, 1, 2):                                  # foreign rows
+        assert torch.equal(got[0][i], x["u"][i])
+        assert torch.equal(got[1][i], x["hist"][i])
+        assert got[2][i] == x["k"][i]
+    assert torch.equal(got[0][3, 1], x["u"][3, 1])       # the padding row
+    assert torch.equal(pred, pred_ref)
+    if name == "bdm":
+        noise = rf_ref.draw_step_noise(x["keys"], x["kc"],
+                                       bank.alg[x["cfg"]], kw["state_shape"])
+        noise_c = kw["sde"].canonicalize(noise).contiguous()
+        want_s = rf_ref.round_update_ref(*args, noise_c=noise_c, **kw)
+        got_s = rf.round_fused(*args, x["eps_n_c"], noise_c, kf=1, n=3072,
+                               fam_index=1, with_corrector=corr)
+        torch.cuda.synchronize()
+        for a, b in zip(got_s, want_s):
+            assert torch.equal(a, b)
+
+
+def test_dct2_on_the_kf_slice_of_a_K_2_pool(dev):
+    """BDM's rows in a K 2 pool: the slice the round step takes is strided,
+    which the kernel refuses; BDM's decanonicalize copies it first and is
+    one dct2 launch, within 1e-6 of max |x| of the plain version."""
+    g = torch.Generator().manual_seed(5)
+    u = torch.randn(4, 2, 3072, generator=g).to(dev)
+    sde = BDM(data_shape=(32, 32, 3))
+    with pytest.raises(ValueError):
+        dct_ops.dct2(u[:, :1].reshape(4, 32, 32, 3), inverse=True)
+    kc.reset_launches()
+    got = sde.decanonicalize(u[:, :1], (32, 32, 3))
+    want = dct_ref.idct2_ref(u[:, :1].reshape(4, 32, 32, 3).cpu())
+    torch.cuda.synchronize()
+    assert kc.launches()["dct2"] == 1
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-6 * float(u.abs().max())
+
+
+def test_f32_flash_attention_at_the_dit_shape(dev):
+    """The DiT's attention under the int8 class at full width: f32 q, k, v
+    at (4, 256, 12, 64), within 2e-5 of the plain version."""
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(4, 256, 12, 64, generator=g).to(dev)
+               for _ in range(3))
+    kc.reset_launches()
+    got = attn_ops.attention(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kc.launches()["flash_attention"] == 1
+    assert float((got - want).abs().max()) <= 2e-5

@@ -127,7 +127,7 @@ def test_slot_table_assign_release():
 
 def test_engine_rejects_unserved_requests(served):
     _, _, teng, _ = served
-    for kw in (dict(precision="bf16"), dict(family="vpsde"),
+    for kw in (dict(precision="fp4"), dict(family="vpsde"),
                dict(q=2, lam=0.5)):
         with pytest.raises(ValueError):
             teng.serve([ServeRequest(rid=0, **kw)])

@@ -35,6 +35,9 @@ SLICE_MODULES = [
     "repro_torch.optim.adamw", "repro_torch.data.pipeline",
     "repro_torch.ckpt.store", "repro_torch.launch.train",
     "repro_torch.core.likelihood", "repro_torch.sde.general",
+    "repro_torch.serve.traffic", "repro_torch.serve.scheduler",
+    "repro_torch.serve.parking", "repro_torch.serve.router",
+    "repro_torch.models.quantize",
 ]
 
 
