@@ -108,7 +108,31 @@ and resumed (bitwise, or within the spread of two uninterrupted runs,
 printed); then the four new configs served on a TokenEngine (internvl2-
 1b, nemotron-4-15b and deepseek-coder-33b at full width and the depth
 that fits, llama3-405b at 4 of 126 layers), each with its logits against
-the plain attention and the records of its (Hq, Hkv, Dh).  It prints:
+the plain attention and the records of its (Hq, Hkv, Dh).  Then phase
+10, the encoder-decoder and the MoE transformers, each freed before the
+next: `[whisper]` serves full-width whisper-base (6 + 6 layers, d_model
+512, 1500 frames, bf16; frames from the seed) on a batch-4 TokenEngine,
+8 requests of 16 and 48 prompt tokens, 32 new: the waves and rounds
+equal the reduced config's CPU schedule, and the launches by form follow
+from them (a wave: 6 encoder DiT-form, 6 causal and 6 cross
+flash_attention launches; a round: 6 cross over the f32 memory pool and
+6 decode_attention); a `serve_stream` with a whisper slot preempted
+(its memory row parked and restored) equal to each request served alone,
+bitwise; the model with the kernels against the plain attention; the
+encoder (Sk 1500: a key tail), the cross prefill and the f32 decode
+cross held against their plain versions and timed.  `[whisper-train]`:
+the cross-attention gradient at (8, 128, 8, 64) over 1500 keys within 1
+bf16 ulp of autograd through the plain version, then `train_lm` on
+whisper-base for 20 steps at batch 8 x 128 with frames each step (36
+flash_attention launches a step), its loss falling.  `[moe]`:
+qwen3-moe-30b-a3b at 12 of 48 layers serves 8 requests (prompts 64 and
+256, 32 new) and llama4-maverick-400b-a17b at 2 of 48 (one dense and one
+MoE layer with its shared expert) a wave of 4 and 8 decode rounds, the
+launches as the CPU schedule predicts; one MoE layer of each, card
+(bf16) against the CPU (f32), with identical expert ids and drops; the
+reduced MoE configs card vs CPU; then `train_lm` on qwen3-moe at 2
+layers, batch 4 x 256, 10 steps, its loss falling.  Each depth cut is
+printed as `reduced` with its reason.  It prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -1415,17 +1439,26 @@ def reduced_sample_check(name: str, sde=None) -> None:
 
 
 def lm_requests(vocab: int, seed0: int, n: int = N_REQUESTS, lens=None,
-                max_new=None):
+                max_new=None, frames=None):
     """n token requests (seeds 0..n-1) with prompts of random ids drawn
     from numpy seed `seed0`, lengths cycling through `lens` (default
-    LM_LENS), max_new tokens each (default LM_MAX_NEW)."""
+    LM_LENS), max_new tokens each (default LM_MAX_NEW).  With `frames`
+    (frontend_ctx, d_model) each request also carries standard-normal
+    frames, drawn before its prompt from the same stream, as the serving
+    CLI draws an encoder-decoder's."""
     from repro_torch.serve import ServeRequest
     lens = LM_LENS if lens is None else lens
     max_new = LM_MAX_NEW if max_new is None else max_new
     rng = np.random.default_rng(seed0)
-    return [ServeRequest(rid=i, workload="token", seed=i, max_new=max_new,
-                         tokens=rng.integers(2, vocab, size=lens[i % len(lens)])
-                         .astype(np.int32)) for i in range(n)]
+    out = []
+    for i in range(n):
+        fr = None if frames is None else \
+            rng.standard_normal(frames).astype(np.float32)
+        out.append(ServeRequest(
+            rid=i, workload="token", seed=i, max_new=max_new, frames=fr,
+            tokens=rng.integers(2, vocab, size=lens[i % len(lens)])
+            .astype(np.int32)))
+    return out
 
 
 def drive_lm_path(dev, card: str):
@@ -3048,6 +3081,611 @@ def lm_train_phase(dev, card, gen):
     return records
 
 
+# ---- whisper / moe: the encoder-decoder and the MoE transformers -------------
+WHISPER, QWEN, LLAMA4 = ("whisper-base", "qwen3-moe-30b-a3b",
+                         "llama4-maverick-400b-a17b")
+# whisper-base served: 8 requests at batch 4, prompts of 16 and 48 tokens by
+# turns (so every admission wave is one request wide), 32 new, caches of 128
+W_LENS, W_NEW, W_LEN = (16, 48), 32, 128
+# its stream: (arrival round, prompt length, max_new, request keywords);
+# distinct prompt lengths, so a wave is one request wide as when served
+# alone; the fifth, more urgent, preempts a running slot
+W_STREAM = [(0.0, 16, 32, {}), (0.0, 17, 32, {}), (1.0, 18, 32, {}),
+            (1.0, 19, 32, {}), (6.0, 20, 16, dict(priority=2, deadline=30.0))]
+W_TRAIN_BATCH, W_TRAIN_SEQ, W_TRAIN_STEPS = 8, 128, 20
+# the MoE configs: qwen3-moe-30b-a3b served at 12 of its 48 layers (8
+# requests, prompts of 64 and 256, 32 new, caches of 512) and trained at 2;
+# llama4-maverick-400b-a17b at 2 of 48 (a dense layer, then an MoE layer
+# with its shared expert): one wave of 4 prompts of 128 and 8 decode rounds
+MOE_LAYERS = {QWEN: 12, LLAMA4: 2}
+MOE_WHY = {
+    QWEN: "the script's 1200 s: 48 layers draw and serve 30.5 B params "
+          "(61 GB bf16) on the one card",
+    LLAMA4: "one card: 48 layers hold ~400 B params (~800 GB bf16)"}
+Q_LENS, Q_NEW, Q_LEN = (64, 256), 32, 512
+L4_PROMPT, L4_ROUNDS, L4_LEN = 128, 8, 256
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
+    2, 4, 256, 10
+MOE_TOL = 3e-2          # bf16 layer on the card vs f32 on the CPU, of scale
+
+
+def token_requests(spec, seed0: int, n: int, lens, max_new: int):
+    """`lm_requests` for `spec`: an encdec arch's requests carry frames."""
+    frames = ((spec.frontend_ctx, spec.cfg.d_model)
+              if spec.family == "encdec" else None)
+    return lm_requests(spec.cfg.vocab, seed0, n=n, lens=lens,
+                       max_new=max_new, frames=frames)
+
+
+def cpu_schedule(name: str, n: int, lens, max_new: int, max_len: int,
+                 batch: int = BATCH):
+    """(admission waves, decode rounds) of a TokenEngine serve of these
+    request shapes (no eos), from a run of the reduced config on the CPU:
+    the schedule is the host's, so the card's serve must repeat it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import TokenEngine
+    arch = Arch(get_arch(name, reduced=True))
+    eng = TokenEngine(arch, arch.init(seed=SEED, device="cpu"),
+                      batch_size=batch, max_len=max_len, eos_id=-1,
+                      device="cpu")
+    eng.serve(token_requests(arch.spec, SEED, n, lens, max_new))
+    return eng.n_prefill_calls, eng.n_decode_steps
+
+
+def depth_cut(name: str, spec, layers: int):
+    """`spec` with its depth cut to `layers` (printed as `reduced`, with
+    its reason)."""
+    log(f"[moe] reduced: {name} at {layers} of {spec.cfg.n_layers} layers "
+        f"({MOE_WHY[name]}); widths, heads, experts and vocab as published")
+    return dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, n_layers=layers))
+
+
+def serve_counted(engine, reqs, warm, what: str, card: str):
+    """A warm-up serve of `warm`, the launch counts set to 0, one serve of
+    `reqs`, the counts read right after: (results, counts, waves, rounds,
+    seconds)."""
+    from repro_torch.kernels import cuda as kc
+    engine.serve(warm)
+    torch.cuda.synchronize()
+    w0, r0, t0n = (engine.n_prefill_calls, engine.n_decode_steps,
+                   engine.n_tokens_out)
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kc.launches()
+    waves, rounds = engine.n_prefill_calls - w0, engine.n_decode_steps - r0
+    n_tok = engine.n_tokens_out - t0n
+    log(f"[{what}] serve: {len(results)} requests, {n_tok} tokens in "
+        f"{dt:.4f}s ({n_tok / dt:.3f} tokens/s, {card}), {waves} admission "
+        f"waves, {rounds} decode rounds; launches {counts}")
+    vocab = engine.arch.cfg.vocab
+    check(sorted(results) == sorted(r.rid for r in reqs),
+          f"[{what}] missing results")
+    for r in reqs:
+        ids = results[r.rid]
+        check(len(ids) == r.max_new and bool(((ids >= 0) & (ids < vocab))
+                                             .all()),
+              f"[{what}] request {r.rid}: {len(ids)} tokens, or ids outside "
+              f"[0, {vocab})")
+    return results, counts, waves, rounds, dt
+
+
+def check_counts(what: str, counts: dict, want: dict) -> None:
+    got = {k: counts.get(k, 0) for k in want}
+    log(f"[{what}] launches by form {got}, predicted {want}")
+    check(got == want, f"[{what}] launches {got}, predicted {want}")
+
+
+def encdec_model_check(arch, params, dev) -> None:
+    """Full-width whisper-base, bf16: the encoder memory, the last prompt
+    position's logits and one per-slot decode step over the f32 memory
+    (as the engine keeps it) with the kernels, against the same model
+    with the plain attention (tol 5e-2 of scale: bf16 rounding through
+    every layer)."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    cfg, L = arch.cfg, W_LENS[1]
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, arch.spec.frontend_ctx, cfg.d_model)).astype(np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(2, L))).to(dev)
+    pos = torch.tensor([L, L - 3], dtype=torch.int32, device=dev)
+
+    def run():
+        mem = arch.encode_memory(params, frames)
+        logits, caches = arch.prefill(params, {"tokens": toks,
+                                               "memory": mem}, W_LEN)
+        nxt = torch.argmax(logits, -1)[:, None]
+        logits2, _ = arch.decode(params, nxt, caches, pos,
+                                 memory=mem.float())
+        return mem.float(), logits.float(), logits2.float()
+
+    kern = run()
+    orig = attn_ops.attention, dec_ops.decode_attention
+    attn_ops.attention = lambda q_, k_, v_, **kw: attention_ref(q_, k_, v_,
+                                                                **kw)
+    dec_ops.decode_attention = decode_attention_ref
+    try:
+        plain = run()
+    finally:
+        attn_ops.attention, dec_ops.decode_attention = orig
+    torch.cuda.synchronize()
+    for what, a, b in zip(("encoder memory", "prefill logits",
+                           "decode logits"), kern, plain):
+        scale = float(b.abs().max())
+        err = max_err(a, b) / scale
+        log(f"[whisper] bf16 {what}, kernels vs plain attention: max abs "
+            f"err / max|x| = {err:.3e} (tol 5e-2), max|x| {scale:.3e}")
+        check(math.isfinite(scale) and err <= 5e-2,
+              f"[whisper] {what} beyond tolerance")
+
+
+def whisper_records(cfg, counts, gen, dev):
+    """The three new shapes of flash_attention on whisper-base's path, each
+    against its plain version and timed beside it, its bound and SDPA: the
+    encoder (BATCH, 1500, 8, 64) bf16 (the DiT form over a key tail:
+    1500 = 23 * 64 + 28), the cross-attention of a prefill wave (1, 48, 8,
+    64) over (1, 1500, 8, 64) bf16, and of a decode round, bf16 queries
+    (BATCH, 1, 8, 64) over the f32 memory pool's keys (the f32 kernel, q
+    upcast).  Then decode_attention and the causal prefill at the
+    decoder's heads (`lm_records`)."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    H, Dh, S = cfg.n_heads, cfg.d_head, cfg.n_audio_ctx
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    bf = torch.bfloat16
+    heads = lambda t: t.transpose(1, 2).contiguous()
+    cross, f32 = counts.get(attn_ops.CROSS_COUNT, 0), \
+        counts.get(attn_ops.F32_COUNT, 0)
+    enc = counts.get("flash_attention", 0) - cross - counts.get(
+        attn_ops.GLOBAL_COUNT, 0)
+    src = "src/repro_torch/csrc/attention.cu"
+    rep_ = "src/repro/kernels/attention/kernel.py:109"
+    records = []
+    # (name, q, k, v, kernel substring, tolerance in bf16 ulp, launches on
+    # the path, bytes, ops, peak)
+    q32, k32, v32 = rnd(BATCH, S, H, Dh), rnd(BATCH, S, H, Dh), \
+        rnd(BATCH, S, H, Dh)
+    Lq = W_LENS[1]
+    cq = rnd(1, Lq, H, Dh)
+    ck, cv = rnd(1, S, H, Dh), rnd(1, S, H, Dh)
+    dq = rnd(BATCH, 1, H, Dh).to(bf)
+    cases = [
+        ("flash_attention[encoder,whisper-base]", q32.to(bf), k32.to(bf),
+         v32.to(bf), f"flash_dit_wgmma_kernel<{Dh}", 2, enc,
+         2 * 4 * q32.numel(), 4 * BATCH * S * S * H * Dh, BF16_FLOPS),
+        ("flash_attention[cross,whisper-base]", cq.to(bf), ck.to(bf),
+         cv.to(bf), f"flash_lm_wgmma_kernel<{Dh}, false", 2, cross - f32,
+         2 * (2 * cq.numel() + 2 * ck.numel()), 4 * Lq * S * H * Dh,
+         BF16_FLOPS),
+        ("flash_attention[cross,f32 memory,whisper-base]", dq, k32, v32,
+         f"flash_lm_kernel<{Dh}, false", 1, f32,
+         2 * 2 * dq.numel() + 4 * 2 * k32.numel(), 4 * BATCH * S * H * Dh,
+         F32_FLOPS)]
+    for name, q, k, v, kname, tol, n, nbytes, ops, peak in cases:
+        got = attn_ops.attention(q, k, v, causal=False)
+        want = attention_ref(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        ulps, err = ulp_err(got, want), max_err(got, want)
+        extra = ""
+        if q.dtype == bf and k.dtype == bf:
+            got32 = attn_ops.attention(q.float(), k.float(), v.float(),
+                                       causal=False)
+            want32 = attention_ref(q.float(), k.float(), v.float(),
+                                   causal=False)
+            torch.cuda.synchronize()
+            e32 = max_err(got32, want32)
+            extra = f"; f32 inputs {e32:.3e} (tol 2e-5)"
+            check(e32 <= 2e-5, f"[whisper] {name}: f32 beyond tolerance")
+        log(f"[whisper] {name} {tuple(q.shape)} {q.dtype} over "
+            f"{tuple(k.shape)} {k.dtype}: max {ulps:.2f} bf16 ulp (tol "
+            f"{tol}), max abs err {err:.3e}{extra}")
+        check(got.dtype == bf and bool(torch.isfinite(got).all())
+              and ulps <= tol, f"[whisper] {name} beyond tolerance")
+        qh = heads(q.to(k.dtype))
+        kh, vh = heads(k), heads(v)
+        records.append(timed_record(
+            name, f"TokenEngine {WHISPER}", src, rep_, n, err,
+            lambda q=q, k=k, v=v: attn_ops.attention(q, k, v, causal=False),
+            kname, lambda q=q, k=k, v=v: attention_ref(q, k, v,
+                                                       causal=False),
+            nbytes, ops, peak,
+            library_fn=lambda qh=qh, kh=kh, vh=vh: sdpa(qh, kh, vh)))
+    records += lm_records(cfg, dict(counts, flash_attention=counts.get(
+        attn_ops.GLOBAL_COUNT, 0)), gen, dev, path=f"TokenEngine {WHISPER}",
+        prompts=W_LENS, max_len=W_LEN, windows=(None,), tag=WHISPER)
+    return records
+
+
+def whisper_stream(engine, card: str) -> None:
+    """`serve_stream` of W_STREAM on the whisper engine: the urgent
+    arrival preempts a running slot (its cache rows, state row and memory
+    row parked on the host, then restored); every request's tokens must
+    equal the request served alone, bitwise."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.serve import Arrival, ServeRequest, TraceTraffic
+    spec = engine.arch.spec
+    rng = np.random.default_rng(78)
+    reqs = []
+    for i, (_, L, m, kw) in enumerate(W_STREAM):
+        frames = rng.standard_normal(
+            (spec.frontend_ctx, spec.cfg.d_model)).astype(np.float32)
+        reqs.append(ServeRequest(
+            rid=i, workload="token", seed=i, max_new=m, frames=frames,
+            tokens=rng.integers(2, spec.cfg.vocab, size=L).astype(np.int32),
+            **kw))
+    trace = TraceTraffic([Arrival(t, r) for (t, *_), r in
+                          zip(W_STREAM, reqs)])
+    p0, r0 = engine.n_preemptions, engine.n_resumes
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    toks = engine.serve_stream(trace)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in toks.values())
+    pre, res = engine.n_preemptions - p0, engine.n_resumes - r0
+    log(f"[whisper] stream: {len(toks)} requests, {n_tok} tokens in "
+        f"{dt:.4f}s ({n_tok / dt:.3f} tokens/s, {card}); preemptions {pre} "
+        f"{engine.preemption_log}, resumes {res}; launches {kc.launches()}")
+    check(pre >= 1 and res == pre and len(engine.parking) == 0,
+          "[whisper] stream: no preemption, or rows left parked")
+    same = sum(bool(np.array_equal(toks[r.rid], engine.serve([r])[r.rid]))
+               for r in reqs)
+    log(f"[whisper] stream (a whisper slot preempted and resumed) == served "
+        f"alone: {same} of {len(reqs)} bitwise")
+    check(same == len(reqs), "[whisper] a streamed request differs from "
+          "the request served alone")
+
+
+def whisper_serve(dev, card, gen):
+    """whisper-base at full width and depth on a batch-BATCH TokenEngine:
+    8 requests (prompts of 16 and 48, 32 new, frames from the seed), the
+    launches by form gated against the schedule, the stream with a
+    preemption, the model with the kernels against the plain attention,
+    and the records of the path's shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models.registry import Arch
+    from repro_torch.models.transformer import param_list
+    from repro_torch.serve import TokenEngine
+    free_card()
+    t0 = time.perf_counter()
+    spec = get_arch(WHISPER)
+    arch, cfg = Arch(spec), spec.cfg
+    params = arch.init(seed=SEED, device=dev)
+    engine = TokenEngine(arch, params, batch_size=BATCH, max_len=W_LEN,
+                         eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in param_list(params))
+    log(f"[whisper] {WHISPER}: {n_params} params drawn on the card, "
+        f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, "
+        f"{cfg.n_audio_ctx} frames, vocab {cfg.vocab}, {cfg.dtype}; memory "
+        f"pool {tuple(engine.memory.shape)} {engine.memory.dtype}: "
+        f"{time.perf_counter() - t0:.2f}s; reduced: none")
+    waves_p, rounds_p = cpu_schedule(WHISPER, N_REQUESTS, W_LENS, W_NEW,
+                                     W_LEN)
+    _, counts, waves, rounds, _ = serve_counted(
+        engine, token_requests(spec, SEED, N_REQUESTS, W_LENS, W_NEW),
+        token_requests(spec, 1000, BATCH, W_LENS, 4), "whisper", card)
+    check((waves, rounds) == (waves_p, rounds_p),
+          f"[whisper] {waves} waves and {rounds} rounds, the CPU schedule "
+          f"{waves_p} and {rounds_p}")
+    Le, Ld = cfg.n_enc_layers, cfg.n_dec_layers
+    check_counts("whisper", counts, {
+        "flash_attention": (Le + 2 * Ld) * waves + Ld * rounds,
+        attn_ops.GLOBAL_COUNT: Ld * waves,
+        attn_ops.CROSS_COUNT: Ld * waves + Ld * rounds,
+        attn_ops.F32_COUNT: Ld * rounds,
+        "decode_attention": Ld * rounds})
+    whisper_stream(engine, card)
+    encdec_model_check(arch, params, dev)
+    del engine, params
+    free_card()
+    return whisper_records(cfg, counts, gen, dev)
+
+
+def cross_grad_check(shape, sk, gen, dev):
+    """The cross-attention with a gradient at whisper-base's training shape
+    (B, Sq, H, Dh) over (B, sk, H, Dh) bf16: `FlashAttention` (the forward
+    kernel once, the plain backward) against torch autograd through the
+    plain version in f32: the output within 2 bf16 ulp, dq, dk, dv within
+    1.  Returns (q, k, v, forward max abs err, timings)."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                                   attention_ref)
+    B, Sq, H, Dh = shape
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, do = rnd(B, Sq, H, Dh), rnd(B, Sq, H, Dh)
+    k, v = rnd(B, sk, H, Dh), rnd(B, sk, H, Dh)
+    what = f"{tuple(shape)} over {sk} keys"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = kc.launches().get(attn_ops.CROSS_COUNT, 0)
+    out = attn_ops.attention(*leaves, causal=False)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    check(kc.launches().get(attn_ops.CROSS_COUNT, 0) == n0 + 1
+          and "FlashAttention" in type(out.grad_fn).__name__,
+          f"[whisper-train] the cross gradient at {what} did not run the "
+          "forward kernel once inside FlashAttention")
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_leaves, causal=False)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    torch.cuda.synchronize()
+    err_fwd = max_err(out.detach(), ref_out.detach())
+    ulp_fwd = ulp_err(out.detach(), ref_out.detach().to(torch.bfloat16))
+    log(f"[whisper-train] cross-attention output at {what}, bf16: max "
+        f"{ulp_fwd:.2f} bf16 ulp (tol 2), max abs err {err_fwd:.3e}")
+    check(bool(torch.isfinite(out).all()) and ulp_fwd <= 2,
+          f"[whisper-train] cross flash_attention beyond tolerance at {what}")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ulps = ulp_err(a, b.to(torch.bfloat16))
+        log(f"[whisper-train] cross-attention gradient {name} at {what}: "
+            f"max {ulps:.2f} bf16 ulp (tol 1), max abs err / max|g| "
+            f"{max_err(a, b) / float(b.abs().max()):.3e}")
+        check(bool(torch.isfinite(a).all()) and ulps <= 1,
+              f"[whisper-train] cross gradient {name} beyond tolerance")
+    del ref_leaves, ref_out, want, got, out
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sl = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    doh = do.transpose(1, 2).contiguous()
+    times = dict(
+        plain_bwd_ms=time_ms(lambda: attention_bwd_ref(
+            q, k, v, do, causal=False), 10)[0],
+        function_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+            attn_ops.attention(*leaves, causal=False), leaves, do), 10)[0],
+        sdpa_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+            sdpa(*sl), sl, doh), 10)[0])
+    log(f"[whisper-train] cross-attention at {what}: plain backward "
+        f"{times['plain_bwd_ms']:.5f} ms; the Function forward + backward "
+        f"{times['function_fwd_bwd_ms']:.5f} ms; SDPA forward + backward "
+        f"{times['sdpa_fwd_bwd_ms']:.5f} ms (device ms)")
+    return q, k, v, err_fwd, times
+
+
+def train_counted(name: str, spec, steps: int, batch: int, seq: int,
+                  want_step: dict, card: str):
+    """`launch.train.train_lm` on `spec` (full width, bf16, remat on) for
+    `steps` steps at batch x seq tokens, each step timed by `on_step`:
+    finite losses that fall (mean of the last 3 below the first 3), the
+    launches `want_step` a step.  Returns (losses, launches, peak GiB,
+    median step ms)."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.transformer import param_list
+    watch = StepClock()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    run = train_lm(lm_train_args(name, steps=steps, batch=batch,
+                                 seq_len=seq), spec=spec, on_step=watch)
+    counts = kc.launches()
+    peak = torch.cuda.max_memory_allocated() / GIB
+    n_params = sum(t.numel() for t in param_list(run["params"]))
+    del run
+    free_card()
+    losses = [float(m["loss"]) for m in watch.metrics]
+    med = 1e3 * float(np.median(watch.step_seconds(1)))
+    log(f"[{name}] train_lm full width ({n_params} params, bf16, remat "
+        f"on), batch {batch} x {seq} tokens, {len(losses)} steps in "
+        f"{time.perf_counter() - t0:.2f}s (init included): loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} (every 5th: "
+        f"{[round(x, 5) for x in losses[::5]]}); median step {med:.3f} ms, "
+        f"{batch * seq / med * 1e3:.1f} tokens/s; peak memory {peak:.3f} "
+        f"GiB allocated ({card})")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"[{name}] train_lm: a loss is not finite, or steps are missing")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"[{name}] train_lm: the loss did not fall")
+    check_counts(f"{name} train", counts,
+                 {k: n * steps for k, n in want_step.items()})
+    return losses, counts, peak, med
+
+
+def whisper_train(dev, card, gen):
+    """The cross-attention gradient at the training shape, then `train_lm`
+    on whisper-base (full width, frames drawn each step): 36
+    flash_attention launches a step (forward and remat recompute: 6
+    encoder DiT-form, 6 causal and 6 cross a pass)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    spec = get_arch(WHISPER)
+    cfg = spec.cfg
+    shape = (W_TRAIN_BATCH, W_TRAIN_SEQ, cfg.n_heads, cfg.d_head)
+    q, k, v, err, times = cross_grad_check(shape, cfg.n_audio_ctx, gen, dev)
+    Le, Ld = cfg.n_enc_layers, cfg.n_dec_layers
+    _, counts, peak, med = train_counted(
+        WHISPER, spec, W_TRAIN_STEPS, W_TRAIN_BATCH, W_TRAIN_SEQ,
+        {"flash_attention": 2 * (Le + 2 * Ld), attn_ops.GLOBAL_COUNT: 2 * Ld,
+         attn_ops.CROSS_COUNT: 2 * Ld}, card)
+    from repro_torch.kernels.attention.ref import attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rec = timed_record(
+        "flash_attention[train,cross,whisper-base]",
+        f"train_lm {WHISPER}, batch {W_TRAIN_BATCH} x {W_TRAIN_SEQ}",
+        "src/repro_torch/csrc/attention.cu",
+        "src/repro/kernels/attention/kernel.py:109",
+        counts.get(attn_ops.CROSS_COUNT, 0), err,
+        lambda: attn_ops.flash_attention_cross(q, k, v),
+        f"flash_lm_wgmma_kernel<{cfg.d_head}, false",
+        lambda: attention_ref(q, k, v, causal=False),
+        2 * (2 * q.numel() + 2 * k.numel()),
+        4 * q.shape[0] * q.shape[1] * k.shape[1] * cfg.n_heads * cfg.d_head,
+        BF16_FLOPS, library_fn=lambda: sdpa(qh, kh, vh))
+    rec.update(times, step_ms=med, peak_gib=peak)
+    return [rec]
+
+
+def moe_layer_check(name: str, p, mcfg, act: str, x) -> None:
+    """One full-width MoE layer of `name` (the served bf16 params `p`) on
+    x (B, S, D) bf16 on the card against a plain f32 version on the CPU
+    on the same values: the routing (expert ids, the choices dropped for
+    capacity) identical, the output within MOE_TOL of scale.  The CPU
+    side routes with the f32 router and sums each token's kept choices,
+    gate times expert MLP, in f32 from the experts' weights (only those
+    chosen are copied over)."""
+    from repro_torch.models import common
+    kw = dict(top_k=mcfg.top_k, capacity_factor=mcfg.capacity_factor)
+    B, S, D = x.shape
+    idx_d, kept_d = common.moe_routing(p, x, impl=mcfg.impl, **kw)
+    out_d = common.MOE_IMPLS[mcfg.impl](p, x, act=act, **kw)
+    torch.cuda.synchronize()
+    router = p["router"].cpu()
+    xc = x.float().cpu()
+    idx, kept = common.moe_routing({"router": router}, xc, impl=mcfg.impl,
+                                   **kw)
+    gate, _ = common.moe_route({"router": router}, xc.reshape(-1, D),
+                               mcfg.top_k)
+    xt = xc.reshape(-1, D)
+    out = torch.zeros_like(xt)
+    used = sorted(set(idx[kept].tolist()))
+    for e in used:
+        rows, cols = torch.nonzero((idx == e) & kept, as_tuple=True)
+        wg, wu, wd = (p[n][e].float().cpu() for n in
+                      ("w_gate", "w_up", "w_down"))
+        xr = xt[rows]
+        y = (common.activation(act, xr @ wg) * (xr @ wu)) @ wd
+        out.index_add_(0, rows, gate[rows, cols][:, None] * y)
+    if "shared" in p:
+        out += common.mlp_apply({k: t.float().cpu() for k, t in
+                                 p["shared"].items()}, xt, act)
+    cap = common.moe_capacity(B * S, mcfg.top_k, mcfg.n_experts,
+                              mcfg.capacity_factor)
+    same_idx = torch.equal(idx_d.cpu(), idx)
+    same_kept = torch.equal(kept_d.cpu(), kept)
+    err = max_err(out_d.reshape(-1, D).cpu(), out) / float(out.abs().max())
+    log(f"[moe] {name} MoE layer ({mcfg.impl}, {mcfg.n_experts} experts, "
+        f"top {mcfg.top_k}, cap {cap}) on {tuple(x.shape)}, card bf16 vs CPU "
+        f"f32: expert ids identical {same_idx}, drops identical "
+        f"{same_kept} ({int((~kept).sum())} of {kept.numel()} choices "
+        f"dropped, {len(used)} experts used); output max abs err / max|y| "
+        f"{err:.3e} (tol {MOE_TOL})")
+    check(same_idx and same_kept, f"[moe] {name}: the card's routing "
+          "differs from the CPU's")
+    check(math.isfinite(err) and err <= MOE_TOL,
+          f"[moe] {name}: the MoE layer's output beyond tolerance")
+
+
+def moe_serve(name: str, dev, card, gen, *, n, lens, max_new, max_len):
+    """`name` at full width, its depth cut to MOE_LAYERS[name], on a
+    batch-BATCH TokenEngine: n requests, the launches gated against the
+    CPU schedule, one MoE layer card vs CPU at a prefill and a decode
+    shape, then the records of its (Hq, Hkv, Dh)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models.registry import Arch
+    from repro_torch.models.transformer import param_list
+    from repro_torch.serve import TokenEngine
+    free_card()
+    spec = depth_cut(name, get_arch(name), MOE_LAYERS[name])
+    arch, cfg = Arch(spec), spec.cfg
+    t0 = time.perf_counter()
+    params = arch.init(seed=SEED, device=dev)
+    engine = TokenEngine(arch, params, batch_size=BATCH, max_len=max_len,
+                         eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in param_list(params))
+    n_moe = sum(cfg.is_moe(i) for i in range(cfg.n_layers))
+    log(f"[moe] {name}: {n_params} params ({n_moe} MoE layers of "
+        f"{cfg.moe.n_experts} experts, top {cfg.moe.top_k}, "
+        f"{cfg.moe.impl} dispatch) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated")
+    waves_p, rounds_p = cpu_schedule(name, n, lens, max_new, max_len)
+    _, counts, waves, rounds, _ = serve_counted(
+        engine, token_requests(spec, SEED, n, lens, max_new),
+        token_requests(spec, 1000, BATCH, lens, 2), f"moe {name}", card)
+    check((waves, rounds) == (waves_p, rounds_p),
+          f"[moe] {name}: {waves} waves and {rounds} rounds, the CPU "
+          f"schedule {waves_p} and {rounds_p}")
+    Ln = cfg.n_layers
+    check_counts(f"moe {name}", counts, {
+        "flash_attention": Ln * waves, attn_ops.GLOBAL_COUNT: Ln * waves,
+        "decode_attention": Ln * rounds})
+    layer = next(i for i in range(cfg.n_layers) if cfg.is_moe(i))
+    p = params["layers"][layer]["moe"]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(cfg.dtype)
+    for shape in ((1, lens[-1] if name == QWEN else 16, cfg.d_model),
+                  (BATCH, 1, cfg.d_model)):
+        moe_layer_check(name, p, cfg.moe, cfg.act, rnd(*shape))
+    del engine, params, p
+    free_card()
+    return lm_records(cfg, counts, gen, dev, path=f"TokenEngine {name}",
+                      prompts=lens, max_len=max_len, windows=(None,),
+                      tag=name)
+
+
+def reduced_moe_check() -> None:
+    """The reduced qwen3-moe and llama4 (f32, each in the sorted dispatch
+    its full config runs) with the same seeded weights on the card and on
+    the CPU: a TokenEngine serve of 6 requests gives equal token
+    streams."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import TokenEngine
+    for name in (QWEN, LLAMA4):
+        spec = get_arch(name, reduced=True)
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, moe=dataclasses.replace(spec.cfg.moe, impl="sorted")))
+        arch = Arch(spec)
+        params = arch.init(seed=3, device="cpu")
+        reqs = token_requests(spec, 60, 6, (20, 9), 8)
+        out = {d: TokenEngine(arch, params, batch_size=3, max_len=32,
+                              device=d).serve(reqs) for d in ("cuda", "cpu")}
+        same = all(np.array_equal(out["cuda"][r.rid], out["cpu"][r.rid])
+                   for r in reqs)
+        log(f"[moe] reduced {name} (sorted dispatch), card vs CPU: token "
+            f"streams of {len(reqs)} requests equal: {same}")
+        check(same, f"[moe] reduced {name}: token streams on the card "
+              "differ from the CPU")
+
+
+def encdec_moe_phase(dev, card, gen):
+    """Phase 10: `[whisper]` serve, `[whisper-train]`, `[moe]` (qwen3-moe
+    served and trained, llama4 served), each phase's weights freed before
+    the next.  Returns the kernels-line records."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    t_phase = time.perf_counter()
+    records = whisper_serve(dev, card, gen)
+    log(f"[whisper] phase {time.perf_counter() - t_phase:.2f}s")
+    t0 = time.perf_counter()
+    records += whisper_train(dev, card, gen)
+    log(f"[whisper-train] phase {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    records += moe_serve(QWEN, dev, card, gen, n=N_REQUESTS, lens=Q_LENS,
+                         max_new=Q_NEW, max_len=Q_LEN)
+    records += moe_serve(LLAMA4, dev, card, gen, n=BATCH,
+                         lens=(L4_PROMPT, L4_PROMPT), max_new=L4_ROUNDS + 1,
+                         max_len=L4_LEN)
+    reduced_moe_check()
+    log(f"[moe] reduced: {QWEN} trained at {MOE_TRAIN_LAYERS} of 48 layers "
+        f"(one card: AdamW keeps f32 m, v and masters, 12 bytes a param "
+        f"beside the bf16 params and grads)")
+    spec = get_arch(QWEN)
+    spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, n_layers=MOE_TRAIN_LAYERS))
+    _, _, peak, med = train_counted(
+        QWEN, spec, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+        {"flash_attention": 2 * MOE_TRAIN_LAYERS,
+         attn_ops.GLOBAL_COUNT: 2 * MOE_TRAIN_LAYERS}, card)
+    log(f"[moe] phase {time.perf_counter() - t0:.2f}s; {QWEN} training "
+        f"peak {peak:.3f} GiB, median step {med:.3f} ms ({card})")
+    log(f"[whisper/moe] phase 10: {time.perf_counter() - t_phase:.2f}s")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3185,6 +3823,10 @@ def main() -> int:
     # freed of the earlier paths' nets and engines -------------------------
     del paths, path_a, lm_engine, lm_serve, att
     records += lm_train_phase(dev, card, gen)
+
+    # ---- 10. whisper, whisper-train, moe: the encoder-decoder and the MoE
+    # transformers, each phase's weights freed before the next -------------
+    records += encdec_moe_phase(dev, card, gen)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(smi())

@@ -1,8 +1,8 @@
 """Model and paper configs: `get_arch(name, reduced=False)` for the token
-archs ported so far (the dense transformers, which the token engine serves
-and `launch.train.train_lm` trains), `get_diffusion(name, reduced=False)`
-for the paper's diffusion configs.  `ARCH_IDS` keeps the JAX package's
-order."""
+archs ported so far (the dense and MoE transformers and whisper-base's
+encoder-decoder, which the token engine serves and `launch.train.train_lm`
+trains), `get_diffusion(name, reduced=False)` for the paper's diffusion
+configs.  `ARCH_IDS` keeps the JAX package's order."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +13,9 @@ ARCH_MODULES: Dict[str, str] = {
     "llama3-405b": "llama3_405b",
     "gemma3-1b": "gemma3_1b",
     "nemotron-4-15b": "nemotron_4_15b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "whisper-base": "whisper_base",
     "internvl2-1b": "internvl2_1b",
 }
 

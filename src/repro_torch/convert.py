@@ -26,11 +26,18 @@ This is the only way the two packages compute the same net.
     cfg)` is its inverse, as numpy arrays (`jax_transformer_tree` over
     tensors: the layers of each pattern position stacked over the
     groups, the remainder a list).
+    An MoE layer's "moe" dict (the f32 router, the (E, D, F) expert
+    stacks, "shared") carries over as any other leaf does, each leaf in
+    its own dtype (the router stays f32 in a bf16 config).
+  * `from_jax_encdec(tree, cfg)` returns the encoder-decoder's params:
+    the stacked `enc_layers` / `dec_layers` unstacked into lists of
+    per-layer dicts, the rest as it is; `to_jax_encdec(params, cfg)` is
+    its inverse, as numpy arrays (`jax_encdec_tree` over tensors).
   * `lm_train_state_tree(params, opt_state, cfg)` is the (params,
-    AdamWState) tree of a transformer and its optimizer state as the JAX
-    `train_lm` checkpoints it, on the host; `load_lm_train_state` copies
-    such a tree back in place.  The optimizer state's lists follow
-    `transformer.param_list`'s order.
+    AdamWState) tree of a transformer or an encoder-decoder (by `cfg`'s
+    type) and its optimizer state as the JAX `train_lm` checkpoints it,
+    on the host; `load_lm_train_state` copies such a tree back in place.
+    The optimizer state's lists follow `transformer.param_list`'s order.
 """
 from __future__ import annotations
 
@@ -198,9 +205,65 @@ def to_jax_transformer(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     return _map(jax_transformer_tree(params, cfg), _to_numpy)
 
 
+_ENCDEC_STACKS = ("enc_layers", "dec_layers")
+
+
+def _is_encdec(cfg) -> bool:
+    return hasattr(cfg, "n_enc_layers")
+
+
+def _from_jax_encdec_layout(tree: Mapping[str, Any], cfg,
+                            leaf) -> Dict[str, Any]:
+    """A tree in the JAX encdec layout -> the port's, each leaf (a layer's
+    slice for a stacked one) passed through `leaf`."""
+    out = {k: _map(v, leaf) for k, v in tree.items()
+           if k not in _ENCDEC_STACKS}
+    for key, n in zip(_ENCDEC_STACKS, (cfg.n_enc_layers, cfg.n_dec_layers)):
+        out[key] = [_map(tree[key], lambda a, i=i: leaf(a[i]))
+                    for i in range(n)]
+    return out
+
+
+def from_jax_encdec(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """JAX `encdec_init` tree (numpy leaves) -> the port's params."""
+    return _from_jax_encdec_layout(tree, cfg,
+                                   lambda a: _tensor(np.asarray(a)))
+
+
+def jax_encdec_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The port's encoder-decoder params (or a tree of that structure) ->
+    the JAX layout over the same tensors: each layer list stacked along a
+    new leading axis (new tensors)."""
+    tree = {k: v for k, v in params.items() if k not in _ENCDEC_STACKS}
+    with torch.no_grad():
+        for key, n in zip(_ENCDEC_STACKS,
+                          (cfg.n_enc_layers, cfg.n_dec_layers)):
+            if len(params[key]) != n:
+                raise ValueError(f"{len(params[key])} {key}, config says "
+                                 f"{n}")
+            tree[key] = _stack(list(params[key]))
+    return tree
+
+
+def to_jax_encdec(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The port's encoder-decoder params -> the JAX `encdec_init` tree as
+    numpy arrays (bf16 as float32 of the same values)."""
+    return _map(jax_encdec_tree(params, cfg), _to_numpy)
+
+
+def _jax_lm_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    return (jax_encdec_tree if _is_encdec(cfg)
+            else jax_transformer_tree)(params, cfg)
+
+
+def _from_jax_lm_layout(tree: Mapping[str, Any], cfg, leaf) -> Dict[str, Any]:
+    return (_from_jax_encdec_layout if _is_encdec(cfg)
+            else _from_jax_layout)(tree, cfg, leaf)
+
+
 def lm_train_state_tree(params: Mapping[str, Any], opt_state, cfg) -> tuple:
-    """(params, AdamWState(step, m, v, master)) in the JAX transformer
-    layout: the tree the JAX `train_lm` checkpoints, on the host.  Each
+    """(params, AdamWState(step, m, v, master)) in the JAX transformer or
+    encdec layout: the tree the JAX `train_lm` checkpoints, on the host.  Each
     leaf is copied to the host before the layers are stacked, so neither a
     save nor a resume's template takes device memory, and a restore into
     this tree's structure lands on the host too.  `opt_state` is the
@@ -208,7 +271,7 @@ def lm_train_state_tree(params: Mapping[str, Any], opt_state, cfg) -> tuple:
     from .ckpt.store import tree_flatten, tree_unflatten
     from .optim.adamw import AdamWState
     structure = tree_flatten(params)[1]
-    tree = lambda ts: jax_transformer_tree(
+    tree = lambda ts: _jax_lm_tree(
         tree_unflatten(structure, [t.detach().cpu() for t in ts]), cfg)
     return (tree(tree_flatten(params)[0]),
             AdamWState(step=opt_state.step.cpu(), m=tree(opt_state.m),
@@ -227,7 +290,8 @@ def load_lm_train_state(params: Mapping[str, Any], opt_state, tree: tuple,
         for dest, sub in ((tree_flatten(params)[0], p_tree),
                           (opt_state.m, state.m), (opt_state.v, state.v),
                           (opt_state.master, state.master)):
-            src = tree_flatten(_from_jax_layout(sub, cfg, lambda t: t))[0]
+            src = tree_flatten(_from_jax_lm_layout(sub, cfg,
+                                                   lambda t: t))[0]
             if len(src) != len(dest) or any(
                     a.shape != b.shape for a, b in zip(dest, src)):
                 raise ValueError("the train state's tree does not match "

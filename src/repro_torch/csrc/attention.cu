@@ -2,15 +2,20 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   kernels/attention/kernel.py  flash_attention  (body _flash_kernel)
-// in the two forms the served models call it:
+// in the forms the served models call it:
 //
 //   * the DiT form: non-causal, no window, Hq == Hkv, q_offset 0, Sq ==
-//     Sk, head width 32/64/128;
-//   * the LM prefill form: causal, an optional sliding window (keep k_pos
-//     > q_pos - window), GQA (query head h reads KV head h / rep, as the
-//     TPU kernel's BlockSpec index map does; the repeat is never
-//     materialized), Sq != Sk, q_offset as an int or a device scalar, head
-//     width 16/32/64/128/256.
+//     Sk, head width 32/64/128 (also whisper's encoder, Sq = Sk = 1500);
+//   * the general form, causal (LM prefill) or not (the encoder-decoder's
+//     cross-attention: decoder queries over encoder keys, Sq != Sk): an
+//     optional sliding window (keep k_pos > q_pos - window), GQA (query
+//     head h reads KV head h / rep, as the TPU kernel's BlockSpec index
+//     map does; the repeat is never materialized), Sq != Sk, q_offset as
+//     an int or a device scalar, head width 16/32/64/128/256.  Causality
+//     is a template flag of each tile: the non-causal instances drop the
+//     diagonal from the band and the mask, and keep the key tail's mask
+//     (k_pos < Sk) on the last tile, which a ragged Sk (1500 = 23 * 64 +
+//     28) needs where no causal mask hides the tail.
 //
 // Every served path calls it in bf16, on the tensor cores:
 // flash_dit_wgmma_kernel and flash_lm_wgmma_kernel (one warpgroup tile
@@ -74,7 +79,14 @@
 // window edge or the end of the keys apply it.  A row with no visible key
 // so far keeps m = -inf and takes its exponentials against 0, so it never
 // turns into NaN, and a fully masked row gives 0, as the plain version's
-// guard.
+// guard.  A non-causal tile's band runs to Sk (only a window cuts its
+// start).  whisper-base's cross-attention is bound by bytes: prefill
+// (G, L, 8, 64) over (G, 1500, 8, 64) bf16 reads 1500 keys a row group
+// for L queries (L = 64: 12.3 MB, 3.7 us at 3.35 TB/s), and its decode
+// step, one query over f32 keys (the f32 memory pool: the CUDA-core
+// kernel, q upcast by the wrapper), 24.6 MB at batch 4 (7.3 us).  There
+// one of a block's 32 rows is live: a simple kernel that is right, not a
+// fast one, at Sq = 1.
 //
 // f32 CUDA-core kernels.  DiT: one block per (q-tile of 64 rows, head,
 // batch), four threads a query row, each holding the q row in registers
@@ -220,7 +232,7 @@ __device__ __forceinline__ void load_n(const float* p, float (&out)[N]) {
   for (int t = 0; t < N; ++t) out[t] = e[t];
 }
 
-template <int DH, bool WINDOW, typename T>
+template <int DH, bool CAUSAL, bool WINDOW, typename T>
 __global__ void __launch_bounds__(kLThreads)
 flash_lm_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o,
@@ -253,7 +265,7 @@ flash_lm_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo_q = q_off + q0;
   const int hi_q = q_off + min(q0 + kLBQ, Sq) - 1;
   int k_begin = 0;
-  const int k_end = min(Sk, hi_q + 1);
+  const int k_end = CAUSAL ? min(Sk, hi_q + 1) : Sk;
   if (WINDOW) k_begin = max(0, lo_q - window + 1);
   k_begin = k_begin / kLBK * kLBK;
   const int q_pos = q_off + row;
@@ -295,7 +307,8 @@ flash_lm_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
       const int kp = k0 + sub + kLTPR * i;
-      bool ok = kp < Sk && row < Sq && kp <= q_pos;
+      bool ok = kp < Sk && row < Sq;
+      if (CAUSAL) ok = ok && kp <= q_pos;
       if (WINDOW) ok = ok && kp > q_pos - window;
       s[i] = ok ? s[i] * scale : -INFINITY;
       mloc = fmaxf(mloc, s[i]);
@@ -347,34 +360,34 @@ flash_lm_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DH, bool WINDOW, typename T>
+template <int DH, bool CAUSAL, bool WINDOW, typename T>
 int launch_lm(const void* q, const void* k, const void* v, void* o,
               const int* q_off_ptr, int q_off, int B, int Sq, int Sk, int Hq,
               int Hkv, int window, float scale, cudaStream_t s) {
   static bool opted_in = false;   // above 48 KB needs the opt-in, once
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_lm_kernel<DH, WINDOW, T>,
+        flash_lm_kernel<DH, CAUSAL, WINDOW, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lm_smem<DH>());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
   const dim3 grid((Sq + kLBQ - 1) / kLBQ, Hq, B);
-  flash_lm_kernel<DH, WINDOW, T><<<grid, kLThreads, lm_smem<DH>(), s>>>(
+  flash_lm_kernel<DH, CAUSAL, WINDOW, T><<<grid, kLThreads, lm_smem<DH>(), s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, q_off_ptr, q_off, Sq, Sk,
       Hq, Hkv, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool WINDOW>
+template <typename T, bool CAUSAL, bool WINDOW>
 int launch_lm_dh(const void* q, const void* k, const void* v, void* o,
                  const int* q_off_ptr, int q_off, int B, int Sq, int Sk,
                  int Hq, int Hkv, int Dh, int window, float scale,
                  cudaStream_t s) {
 #define REPRO_LM(DH)                                                        \
   case DH:                                                                  \
-    return launch_lm<DH, WINDOW, T>(q, k, v, o, q_off_ptr, q_off, B, Sq, Sk, \
-                                    Hq, Hkv, window, scale, s);
+    return launch_lm<DH, CAUSAL, WINDOW, T>(q, k, v, o, q_off_ptr, q_off, B, \
+                                            Sq, Sk, Hq, Hkv, window, scale, s);
   switch (Dh) {
     REPRO_LM(16)
     REPRO_LM(32)
@@ -386,16 +399,16 @@ int launch_lm_dh(const void* q, const void* k, const void* v, void* o,
 #undef REPRO_LM
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 int launch_lm_form(const void* q, const void* k, const void* v, void* o,
                    const int* q_off_ptr, int q_off, int B, int Sq, int Sk,
                    int Hq, int Hkv, int Dh, int window, float scale,
                    cudaStream_t s) {
   if (window > 0)
-    return launch_lm_dh<T, true>(q, k, v, o, q_off_ptr, q_off, B, Sq, Sk, Hq,
-                                 Hkv, Dh, window, scale, s);
-  return launch_lm_dh<T, false>(q, k, v, o, q_off_ptr, q_off, B, Sq, Sk, Hq,
-                                Hkv, Dh, 0, scale, s);
+    return launch_lm_dh<T, CAUSAL, true>(q, k, v, o, q_off_ptr, q_off, B, Sq,
+                                         Sk, Hq, Hkv, Dh, window, scale, s);
+  return launch_lm_dh<T, CAUSAL, false>(q, k, v, o, q_off_ptr, q_off, B, Sq,
+                                        Sk, Hq, Hkv, Dh, 0, scale, s);
 }
 
 // ---- d_head 16 / 32 on the tensor cores (mma.sync) ----------------------
@@ -658,7 +671,7 @@ flash_dit_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    aligned);
 }
 
-template <int DH, bool WINDOW>
+template <int DH, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(kMThreads, 4)
 flash_lm_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -666,8 +679,8 @@ flash_lm_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int Sk, int Hq, int Hkv, int window, float scale_log2,
                     bool aligned) {
   const int q_off = q_off_ptr != nullptr ? *q_off_ptr : q_off_val;
-  flash_mma_tile<DH, true, WINDOW>(q, k, v, o, q_off, Sq, Sk, Hq, Hkv, window,
-                                   scale_log2, aligned);
+  flash_mma_tile<DH, CAUSAL, WINDOW>(q, k, v, o, q_off, Sq, Sk, Hq, Hkv,
+                                     window, scale_log2, aligned);
 }
 
 // ---- d_head 64 / 128 / 256 on the warpgroup tensor cores (wgmma) --------
@@ -942,7 +955,7 @@ flash_dit_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       q, k, v, o, 0, S, S, H, H, 0, scale_log2, aligned);
 }
 
-template <int DH, bool WINDOW>
+template <int DH, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(LmWgCfg<DH>::type::kThreads,
                                   LmWgCfg<DH>::type::kMinBlocks)
 flash_lm_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -951,7 +964,7 @@ flash_lm_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       int Sq, int Sk, int Hq, int Hkv, int window,
                       float scale_log2, bool aligned) {
   const int q_off = q_off_ptr != nullptr ? *q_off_ptr : q_off_val;
-  flash_wgmma_tile<typename LmWgCfg<DH>::type, true, WINDOW>(
+  flash_wgmma_tile<typename LmWgCfg<DH>::type, CAUSAL, WINDOW>(
       q, k, v, o, q_off, Sq, Sk, Hq, Hkv, window, scale_log2, aligned);
 }
 
@@ -984,18 +997,19 @@ int launch_dit_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int DH, bool WINDOW>
+template <int DH, bool CAUSAL, bool WINDOW>
 int launch_lm_wgmma(const void* q, const void* k, const void* v, void* o,
                     const int* q_off_ptr, int q_off, int B, int Sq, int Sk,
                     int Hq, int Hkv, int window, float scale,
                     cudaStream_t s) {
   using C = typename LmWgCfg<DH>::type;
   static bool opted_in = false;
-  const cudaError_t e = opt_in(flash_lm_wgmma_kernel<DH, WINDOW>, C::kSmem,
-                               opted_in);
+  const cudaError_t e = opt_in(flash_lm_wgmma_kernel<DH, CAUSAL, WINDOW>,
+                               C::kSmem, opted_in);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + C::kBQ - 1) / C::kBQ, Hq, B);
-  flash_lm_wgmma_kernel<DH, WINDOW><<<grid, C::kThreads, C::kSmem, s>>>(
+  flash_lm_wgmma_kernel<DH, CAUSAL, WINDOW><<<grid, C::kThreads, C::kSmem,
+                                              s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, q_off_ptr,
       q_off, Sq, Sk, Hq, Hkv, window, scale * kLog2e, aligned16(q, k, v, o));
   return (int)cudaGetLastError();
@@ -1014,31 +1028,33 @@ int launch_dit_mma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int DH, bool WINDOW>
+template <int DH, bool CAUSAL, bool WINDOW>
 int launch_lm_mma(const void* q, const void* k, const void* v, void* o,
                   const int* q_off_ptr, int q_off, int B, int Sq, int Sk,
                   int Hq, int Hkv, int window, float scale, cudaStream_t s) {
   const dim3 grid((Sq + kMBQ - 1) / kMBQ, Hq, B);
-  flash_lm_mma_kernel<DH, WINDOW><<<grid, kMThreads, mma_smem<DH>(), s>>>(
+  flash_lm_mma_kernel<DH, CAUSAL, WINDOW><<<grid, kMThreads, mma_smem<DH>(),
+                                            s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, q_off_ptr,
       q_off, Sq, Sk, Hq, Hkv, window, scale * kLog2e,
       aligned16(q, k, v, o));
   return (int)cudaGetLastError();
 }
 
-template <bool WINDOW>
+template <bool CAUSAL, bool WINDOW>
 int launch_lm_mma_dh(const void* q, const void* k, const void* v, void* o,
                      const int* q_off_ptr, int q_off, int B, int Sq, int Sk,
                      int Hq, int Hkv, int Dh, int window, float scale,
                      cudaStream_t s) {
 #define REPRO_LM_MMA(DH)                                                     \
   case DH:                                                                   \
-    return launch_lm_mma<DH, WINDOW>(q, k, v, o, q_off_ptr, q_off, B, Sq, Sk, \
-                                     Hq, Hkv, window, scale, s);
+    return launch_lm_mma<DH, CAUSAL, WINDOW>(q, k, v, o, q_off_ptr, q_off, B, \
+                                             Sq, Sk, Hq, Hkv, window, scale, s);
 #define REPRO_LM_WGMMA(DH)                                                  \
   case DH:                                                                  \
-    return launch_lm_wgmma<DH, WINDOW>(q, k, v, o, q_off_ptr, q_off, B, Sq,  \
-                                       Sk, Hq, Hkv, window, scale, s);
+    return launch_lm_wgmma<DH, CAUSAL, WINDOW>(q, k, v, o, q_off_ptr, q_off,  \
+                                               B, Sq, Sk, Hq, Hkv, window,    \
+                                               scale, s);
   switch (Dh) {
     REPRO_LM_MMA(16)
     REPRO_LM_MMA(32)
@@ -1085,27 +1101,38 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// LM prefill form, causal.  q, o: (B, Sq, Hq, Dh); k, v: (B, Sk, Hkv, Dh),
-// contiguous, Hkv dividing Hq; q_offset read from the device scalar
-// q_off_ptr when it is not null, else q_off; window <= 0 means none;
-// dtype 0 = f32, 1 = bf16.
+// The general form: causal (LM prefill) or not (cross-attention: keys of
+// another sequence, Sq != Sk).  q, o: (B, Sq, Hq, Dh); k, v: (B, Sk, Hkv,
+// Dh), contiguous, Hkv dividing Hq; q_offset read from the device scalar
+// q_off_ptr when it is not null, else q_off (it places the causal mask and
+// the window); window <= 0 means none; causal 0 or 1; dtype 0 = f32, 1 =
+// bf16.
 int repro_flash_attention_lm(const void* q, const void* k, const void* v,
                              void* o, const void* q_off_ptr, int q_off, int B,
                              int Sq, int Sk, int Hq, int Hkv, int Dh,
-                             int window, int dtype, float scale,
+                             int window, int causal, int dtype, float scale,
                              void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* qp = (const int*)q_off_ptr;
+  const int w = window > 0 ? window : 0;
   if (dtype == 0)
-    return launch_lm_form<float>(q, k, v, o, qp, q_off, B, Sq, Sk, Hq, Hkv,
-                                 Dh, window, scale, s);
+    return causal
+        ? launch_lm_form<float, true>(q, k, v, o, qp, q_off, B, Sq, Sk, Hq,
+                                      Hkv, Dh, w, scale, s)
+        : launch_lm_form<float, false>(q, k, v, o, qp, q_off, B, Sq, Sk, Hq,
+                                       Hkv, Dh, w, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (window > 0)                              // bf16: the tensor cores
-    return launch_lm_mma_dh<true>(q, k, v, o, qp, q_off, B, Sq, Sk, Hq, Hkv,
-                                  Dh, window, scale, s);
-  return launch_lm_mma_dh<false>(q, k, v, o, qp, q_off, B, Sq, Sk, Hq, Hkv,
-                                 Dh, 0, scale, s);
+  // bf16: the tensor cores
+  if (causal)
+    return w ? launch_lm_mma_dh<true, true>(q, k, v, o, qp, q_off, B, Sq, Sk,
+                                            Hq, Hkv, Dh, w, scale, s)
+             : launch_lm_mma_dh<true, false>(q, k, v, o, qp, q_off, B, Sq, Sk,
+                                             Hq, Hkv, Dh, 0, scale, s);
+  return w ? launch_lm_mma_dh<false, true>(q, k, v, o, qp, q_off, B, Sq, Sk,
+                                           Hq, Hkv, Dh, w, scale, s)
+           : launch_lm_mma_dh<false, false>(q, k, v, o, qp, q_off, B, Sq, Sk,
+                                            Hq, Hkv, Dh, 0, scale, s);
 }
 
 }  // extern "C"

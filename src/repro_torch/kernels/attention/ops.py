@@ -2,30 +2,39 @@
 one of the two forms of the hand-written flash kernel
 (`csrc/attention.cu`), each launch counted as `flash_attention` (a
 causal one also as `flash_attention:window` or `flash_attention:global`,
-an f32 DiT-form one also as `flash_attention:f32`):
+a non-causal general one also as `flash_attention:cross`, an f32 one
+of either form also as `flash_attention:f32`):
 
   * the DiT form — non-causal, no window, Hq == Hkv, Sq == Sk, q_offset 0,
-    head width 32, 64 or 128;
-  * the LM prefill form — causal, an optional window, GQA (Hkv dividing
-    Hq), Sq != Sk, q_offset an int or a device scalar, head width 16, 32,
-    64, 128 or 256.
+    head width 32, 64 or 128 (the DiT; whisper's encoder);
+  * the general form — causal (LM prefill) or not (cross-attention: the
+    encoder-decoder's decoder queries over the encoder memory), an
+    optional window, GQA (Hkv dividing Hq), Sq != Sk, q_offset an int or
+    a device scalar, head width 16, 32, 64, 128 or 256.  A non-causal
+    call outside the DiT form runs it.
 
 Both take bf16, which runs on the tensor cores (`flash_dit_wgmma_kernel`
 and `flash_lm_wgmma_kernel` at head width 64, 128 or 256;
 `flash_dit_mma_kernel` and `flash_lm_mma_kernel`, mma.sync, at 16 or 32),
 and f32, which runs on the CUDA cores (`flash_fwd_kernel`,
-`flash_lm_kernel`).  A CUDA call outside these forms raises: it is never
-sent to the plain version.
+`flash_lm_kernel`).  q, k and v of different dtypes are promoted to a
+common one and the output cast back to q's, as the plain version (and the
+JAX reference) computes them in f32 and returns q's dtype: the encoder-
+decoder's decode step attends bf16 queries over the f32 memory pool's
+keys, which runs the f32 kernel.  A CUDA call outside these forms raises:
+it is never sent to the plain version.
 
 Gradients: where grad mode is on and q, k or v requires a gradient, the
-two forms that train run as the autograd Function `FlashAttention`,
-whose forward is the form's kernel (the plain version on a CPU tensor)
-and whose backward is the plain `attention_bwd_ref` from the saved q, k,
-v, on either device (the JAX package's Pallas kernel has no backward to
-port): the DiT form, and the causal form at q_offset 0 and Sq == Sk (LM
-training; an optional window, GQA).  With grad off the path is the
-forward alone.  A CUDA call that needs a gradient in any other form
-raises.
+forms that train run as the autograd Function `FlashAttention`, whose
+forward is the form's kernel (the plain version on a CPU tensor) and
+whose backward is the plain `attention_bwd_ref` from the saved q, k, v,
+on either device (the JAX package's Pallas kernel has no backward to
+port): the non-causal form without a window at q_offset 0 (the DiT, and
+the encoder-decoder's self- and cross-attention: any Sq and Sk, GQA),
+and the causal form at q_offset 0 and Sq == Sk (LM training; an
+optional window, GQA), q, k and v of one dtype.  With grad off the path
+is the forward alone.  A CUDA call that needs a gradient in any other
+form raises.
 """
 from __future__ import annotations
 
@@ -47,14 +56,19 @@ LM_HEAD_WIDTHS = (16, 32, 64, 128, 256)
 # (the band skip) or without
 WINDOW_COUNT, GLOBAL_COUNT = ("flash_attention:window",
                               "flash_attention:global")
-# and the DiT form's f32 launches (the CUDA-core kernel: a DiT whose config
-# is bf16 runs it under the int8 precision class, models/quantize.py)
+# and every f32 launch (the CUDA-core kernels: a DiT whose config is bf16
+# runs the DiT form's under the int8 precision class, models/quantize.py;
+# the encoder-decoder's decode step the general form's over the f32 memory
+# pool)
 F32_COUNT = "flash_attention:f32"
+# the general form's non-causal launches (cross-attention)
+CROSS_COUNT = "flash_attention:cross"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, B, S, H, Dh, dtype, scale, stream
 _ARGTYPES = [_VP] * 4 + [_I] * 5 + [ctypes.c_float, _VP]
-# q k v o q_off_ptr | q_off B Sq Sk Hq Hkv Dh window dtype | scale stream
-_LM_ARGTYPES = [_VP] * 5 + [_I] * 9 + [ctypes.c_float, _VP]
+# q k v o q_off_ptr | q_off B Sq Sk Hq Hkv Dh window causal dtype | scale
+# stream
+_LM_ARGTYPES = [_VP] * 5 + [_I] * 10 + [ctypes.c_float, _VP]
 
 
 def _check_dtype(q: Tensor) -> None:
@@ -88,14 +102,29 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
 def flash_attention_causal(q: Tensor, k: Tensor, v: Tensor, *,
                            window: Optional[int] = None,
                            q_offset: Union[int, Tensor] = 0) -> Tensor:
-    """The CUDA kernel, LM prefill form: causal attention of q (B, Sq, Hq,
+    """The CUDA kernel, general form, causal (LM prefill): q (B, Sq, Hq,
     Dh) over k/v (B, Sk, Hkv, Dh), query i at absolute position q_offset +
     i, keys in (q_pos - window, q_pos] when a window is given."""
+    return _flash_general(q, k, v, True, window, q_offset)
+
+
+def flash_attention_cross(q: Tensor, k: Tensor, v: Tensor, *,
+                          window: Optional[int] = None,
+                          q_offset: Union[int, Tensor] = 0) -> Tensor:
+    """The CUDA kernel, general form, non-causal (cross-attention): q (B,
+    Sq, Hq, Dh) over every key of k/v (B, Sk, Hkv, Dh), or those with
+    k_pos > q_offset + i - window when a window is given."""
+    return _flash_general(q, k, v, False, window, q_offset)
+
+
+def _flash_general(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                   window: Optional[int],
+                   q_offset: Union[int, Tensor]) -> Tensor:
     B, Sq, Hq, Dh = q.shape
     _check_dtype(q)
     if Dh not in LM_HEAD_WIDTHS:
         raise ValueError(f"flash_attention: head width {Dh} not in "
-                         f"{LM_HEAD_WIDTHS} (causal form)")
+                         f"{LM_HEAD_WIDTHS} (general form)")
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != Dh:
         raise ValueError(f"flash_attention: k of shape {tuple(k.shape)} "
                          f"for q of shape {tuple(q.shape)}")
@@ -120,32 +149,35 @@ def flash_attention_causal(q: Tensor, k: Tensor, v: Tensor, *,
     fn = cuda.function("attention", "repro_flash_attention_lm", _LM_ARGTYPES)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q_off_ptr, q_off, B, Sq, Sk, Hq, Hkv, Dh, w, _DTYPES[q.dtype],
-            1.0 / math.sqrt(Dh), cuda.stream_ptr(q))
-    cuda.check("attention", rc, "flash_attention (causal)")
+            q_off_ptr, q_off, B, Sq, Sk, Hq, Hkv, Dh, w, int(causal),
+            _DTYPES[q.dtype], 1.0 / math.sqrt(Dh), cuda.stream_ptr(q))
+    cuda.check("attention", rc, "flash_attention (causal)" if causal
+               else "flash_attention (cross)")
     cuda.count_launch("flash_attention")
-    cuda.count_launch(WINDOW_COUNT if w else GLOBAL_COUNT)
+    if causal:
+        cuda.count_launch(WINDOW_COUNT if w else GLOBAL_COUNT)
+    else:
+        cuda.count_launch(CROSS_COUNT)
+    if q.dtype == torch.float32:
+        cuda.count_launch(F32_COUNT)
     return out
 
 
 class FlashAttention(torch.autograd.Function):
-    """Either form that trains, with a gradient: the DiT form (`causal`
-    False) or the causal form at q_offset 0 and Sq == Sk with an optional
-    window and GQA (LM training).  The forward is the kernel of that form
-    (`flash_attention` or `flash_attention_causal`, each counted as
-    `flash_attention`; `attention_ref` for a CPU tensor), the backward the
-    plain `attention_bwd_ref`, recomputed from the saved q, k, v."""
+    """The forms that train, with a gradient: non-causal without a window
+    (the DiT; the encoder-decoder's self- and cross-attention, any Sq and
+    Sk, GQA) or causal at Sq == Sk with an optional window and GQA (LM
+    training), q_offset 0.  The forward is the kernel of that form
+    (`_forward`: counted as `flash_attention`; `attention_ref` for a CPU
+    tensor), the backward the plain `attention_bwd_ref`, recomputed from
+    the saved q, k, v."""
 
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
                 window: Optional[int]) -> Tensor:
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if cuda.device_of(q) == "cpu":
-            return attention_ref(q, k, v, causal=causal, window=window)
-        if causal:
-            return flash_attention_causal(q, k, v, window=window)
-        return flash_attention(q, k, v)
+        return _forward(q, k, v, causal, window, 0)
 
     @staticmethod
     def backward(ctx, do: Tensor):
@@ -157,15 +189,35 @@ def _dit_form(q: Tensor, k: Tensor, v: Tensor, causal: bool, window,
               q_offset) -> bool:
     return (not causal and window is None
             and isinstance(q_offset, int) and q_offset == 0
-            and q.shape == k.shape and k.shape == v.shape)
+            and q.shape == k.shape and k.shape == v.shape
+            and q.shape[-1] in _HEAD_WIDTHS)
 
 
-def _lm_train_form(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                   q_offset) -> bool:
-    return (causal and isinstance(q_offset, int) and q_offset == 0
+def _train_form(q: Tensor, k: Tensor, v: Tensor, causal: bool, window,
+                q_offset) -> bool:
+    """A form `FlashAttention` takes: q_offset 0, one dtype, GQA shapes;
+    non-causal without a window (any Sq, Sk), or causal at Sq == Sk."""
+    return (isinstance(q_offset, int) and q_offset == 0
+            and q.dtype == k.dtype == v.dtype
             and k.shape == v.shape and k.dim() == q.dim() == 4
-            and q.shape[:2] == k.shape[:2] and q.shape[3] == k.shape[3]
-            and q.shape[2] % k.shape[2] == 0)
+            and q.shape[0] == k.shape[0] and q.shape[3] == k.shape[3]
+            and q.shape[2] % k.shape[2] == 0
+            and (q.shape[1] == k.shape[1] if causal else window is None))
+
+
+def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window,
+             q_offset) -> Tensor:
+    """The forward of one call, q, k, v of one dtype: the plain version on
+    a CPU tensor, else the kernel of its form."""
+    if cuda.device_of(q) == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    if causal:
+        return flash_attention_causal(q, k, v, window=window,
+                                      q_offset=q_offset)
+    if _dit_form(q, k, v, causal, window, q_offset):
+        return flash_attention(q, k, v)
+    return flash_attention_cross(q, k, v, window=window, q_offset=q_offset)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -174,24 +226,21 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """Multi-head attention, q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh)."""
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if needs_grad and (_dit_form(q, k, v, causal, window, q_offset)
-                       or _lm_train_form(q, k, v, causal, q_offset)):
+    if needs_grad and _train_form(q, k, v, causal, window, q_offset):
         return FlashAttention.apply(q, k, v, causal, window)
     if cuda.device_of(q) == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     if needs_grad:
         raise NotImplementedError(
-            "flash_attention has a gradient in its DiT form (non-causal, no "
-            "window, Hq == Hkv, Sq == Sk) and its causal form at q_offset 0 "
-            "and Sq == Sk (LM training); not in this one")
-    if causal:
-        return flash_attention_causal(q, k, v, window=window,
-                                      q_offset=q_offset)
-    if not _dit_form(q, k, v, causal, window, q_offset):
-        raise NotImplementedError(
-            "the CUDA attention kernel covers the causal form (LM prefill) "
-            "and the non-causal, window-free, Hq == Hkv, Sq == Sk form (the "
-            "DiT); a non-causal call with a window, GQA, q_offset or Sq != "
-            "Sk is not ported")
-    return flash_attention(q, k, v)
+            "flash_attention has a gradient at q_offset 0 with q, k, v of "
+            "one dtype, non-causal without a window or causal at Sq == Sk; "
+            "not in this form")
+    if not q.dtype == k.dtype == v.dtype:
+        # as the plain version: computed in the promoted dtype, returned
+        # in q's
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        return _forward(q.to(dt), k.to(dt), v.to(dt), causal, window,
+                        q_offset).to(q.dtype)
+    return _forward(q, k, v, causal, window, q_offset)

@@ -3,9 +3,10 @@
 
 GQA, causal and sliding-window masks as in the JAX package's
 `attention_ref`; scores and softmax in f32, output in q's dtype.  Beside
-it, `attention_bwd_ref`, the plain gradient of the two forms that train:
-the DiT form and the causal / window / GQA form at q_offset 0 and Sq ==
-Sk.  It is the backward of the port's attention on both devices.
+it, `attention_bwd_ref`, the plain gradient of the forms that train, at
+q_offset 0: non-causal without a window (any Sq and Sk, GQA) and the
+causal / window / GQA form at Sq == Sk.  It is the backward of the
+port's attention on both devices.
 """
 from __future__ import annotations
 
@@ -44,11 +45,12 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
                       causal: bool = False, window: Optional[int] = None):
     """Gradients (dq, dk, dv) of `attention_ref` for the output gradient
-    `do`, each in its input's dtype, in the two forms that train: the DiT
-    form (non-causal, no window, Hq == Hkv) and the causal form with an
-    optional window and GQA (Hkv dividing Hq) at q_offset 0, Sq == Sk.  P
-    is recomputed from q and k in f32 under `attention_ref`'s masks and
-    every product is f32:
+    `do`, each in its input's dtype, at q_offset 0 in the forms that
+    train: non-causal without a window (the DiT; the encoder-decoder's
+    self- and cross-attention, any Sq and Sk, GQA), and causal with an
+    optional window and GQA (Hkv dividing Hq) at Sq == Sk.  P is
+    recomputed from q and k in f32 under `attention_ref`'s masks and every
+    product is f32:
 
         S = q k^T / sqrt(Dh),  P = softmax(S),  dV = P^T dO,
         dP = dO V^T,  dS = P * (dP - rowsum(dP * P)),
@@ -59,15 +61,16 @@ def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
     package takes this gradient through its `attention_ref` (its Pallas
     kernel has no backward), so this is the reference of the port's
     attention backward on either device."""
-    B, S, Hq, Dh = q.shape
+    B, Sq, Hq, Dh = q.shape
     if k.shape != v.shape or do.shape != q.shape or k.dim() != 4 \
-            or k.shape[0] != B or k.shape[1] != S or k.shape[3] != Dh \
-            or Hq % k.shape[2]:
-        raise ValueError("attention_bwd_ref: q and do of shape (B, S, Hq, "
-                         "Dh), k and v (B, S, Hkv, Dh) with Hkv dividing Hq; "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+            or k.shape[0] != B or k.shape[3] != Dh or Hq % k.shape[2] \
+            or (causal and k.shape[1] != Sq):
+        raise ValueError("attention_bwd_ref: q and do of shape (B, Sq, Hq, "
+                         "Dh), k and v (B, Sk, Hkv, Dh) with Hkv dividing "
+                         "Hq, Sk == Sq when causal; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}, {tuple(do.shape)}")
-    Hkv = k.shape[2]
+    Sk, Hkv = k.shape[1], k.shape[2]
     scale = math.sqrt(float(Dh))
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     if not causal and window is None and Hkv == Hq:
@@ -79,17 +82,17 @@ def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
         dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) / scale
         dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) / scale
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    if not causal:
-        raise ValueError("attention_bwd_ref: a non-causal call takes the DiT "
-                         "form only (no window, Hq == Hkv)")
     rep = Hq // Hkv
-    qg = q32.reshape(B, S, Hkv, rep, Dh)
-    dog = do32.reshape(B, S, Hkv, rep, Dh)
+    qg = q32.reshape(B, Sq, Hkv, rep, Dh)
+    dog = do32.reshape(B, Sq, Hkv, rep, Dh)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k32) / scale
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
     if window is not None:
-        mask = mask & (pos[None, :] > pos[:, None] - window)
+        mask = mask & (k_pos > q_pos - window)
     scores = scores.masked_fill(~mask, float("-inf"))
     p = torch.softmax(scores, dim=-1)
     p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
@@ -98,5 +101,5 @@ def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     dq = torch.einsum("bhrqk,bkhd->bqhrd", ds, k32) / scale
     dk = torch.einsum("bhrqk,bqhrd->bkhd", ds, qg) / scale
-    return (dq.reshape(B, S, Hq, Dh).to(q.dtype), dk.to(k.dtype),
+    return (dq.reshape(B, Sq, Hq, Dh).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))

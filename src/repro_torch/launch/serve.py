@@ -27,7 +27,9 @@ are those of one engine, bitwise.  --sync-every bounds the rounds between
 two host polls.
 
 Token prompts are random ids from --seed (`numpy` default_rng, ids in
-[2, vocab)), as the JAX package's CLI draws them.  Diffusion requests cycle
+[2, vocab)), as the JAX package's CLI draws them; an encoder-decoder arch
+(whisper-base) also gets standard-normal frames (frontend_ctx, d_model)
+from the same stream, drawn before each prompt, as the JAX CLI does.  Diffusion requests cycle
 through the --mix specs (ServeRequest fields as key=value; keys not named
 fall back to --nfe/--q/--corrector/--lam/--grid/--algorithm, and the
 precision to f32).  Weights are random, drawn from --seed.  The engine
@@ -91,11 +93,18 @@ def serve_tokens(args) -> int:
     arch = Arch(get_arch(args.arch, reduced=args.reduced))
     params = arch.init(seed=args.seed, device=device)
     rng = np.random.default_rng(args.seed)
-    requests = [ServeRequest(
-        rid=rid, workload="token",
-        tokens=rng.integers(2, arch.cfg.vocab,
-                            size=args.prompt_len).astype(np.int32),
-        max_new=args.max_new) for rid in range(args.requests)]
+    requests = []
+    for rid in range(args.requests):
+        # an encdec arch's frames first, then the prompt, from one stream
+        frames = None
+        if arch.encdec:
+            frames = rng.standard_normal(
+                (arch.spec.frontend_ctx, arch.cfg.d_model)).astype(np.float32)
+        requests.append(ServeRequest(
+            rid=rid, workload="token",
+            tokens=rng.integers(2, arch.cfg.vocab,
+                                size=args.prompt_len).astype(np.int32),
+            max_new=args.max_new, frames=frames))
     engine = TokenEngine(arch, params, batch_size=args.batch,
                          max_len=args.max_len, sync_every=args.sync_every,
                          device=device)

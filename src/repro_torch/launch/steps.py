@@ -6,10 +6,13 @@ run.
                                          params' flat list, AdamW
                                          (clipping, f32 masters), in place
   make_prefill_step(arch, max_len)       batched prompt prefill -> (last
-                                         position's logits, fresh caches)
+                                         position's logits, fresh caches);
+                                         an encdec batch carries the
+                                         encoder's "memory" or "frames"
   make_serve_step(arch)                  one-token greedy decode against
                                          fixed caches (scalar or per-slot
-                                         cache_len)
+                                         cache_len), and an encdec arch's
+                                         memory
   make_token_round_step(arch)            one greedy decode token for every
                                          slot of a TokenState, with the
                                          per-slot bookkeeping on the device
@@ -99,13 +102,15 @@ def make_prefill_step(arch, max_len: int):
 
 
 def make_serve_step(arch):
-    """One-token greedy decode: (params, token (B, 1), caches, cache_len)
-    -> (next_token (B, 1) int32, logits (B, vocab), caches).  `cache_len`
-    is a scalar (every row at one position) or a (B,) per-slot tensor;
-    the caches are updated in place."""
+    """One-token greedy decode: (params, token (B, 1), caches, cache_len,
+    memory=None) -> (next_token (B, 1) int32, logits (B, vocab), caches).
+    `cache_len` is a scalar (every row at one position) or a (B,) per-slot
+    tensor; `memory` the encoder memory of an encdec arch; the caches are
+    updated in place."""
     @torch.no_grad()
-    def serve_step(params, token, caches, cache_len):
-        logits, caches = arch.decode(params, token, caches, cache_len)
+    def serve_step(params, token, caches, cache_len, memory=None):
+        logits, caches = arch.decode(params, token, caches, cache_len,
+                                     memory=memory)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_token, logits, caches
 
@@ -125,12 +130,14 @@ def make_token_round_step(arch):
     out-of-range column and drops it; an out-of-range index is a device
     assert in torch, so here an inactive row writes its own current value
     back at column 0 instead.  Nothing is read back to the host; the caches
-    are updated in place."""
+    are updated in place.  `memory` is the encoder memory pool of an
+    encdec arch (one row a slot)."""
     from ..serve.state import TokenState
 
     @torch.no_grad()
-    def round_step(params, state, caches, eos: int):
-        logits, caches = arch.decode(params, state.last, caches, state.pos)
+    def round_step(params, state, caches, eos: int, memory=None):
+        logits, caches = arch.decode(params, state.last, caches, state.pos,
+                                     memory=memory)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)          # (B,)
         act = state.active
         rows = torch.arange(state.out.shape[0], device=act.device)

@@ -13,8 +13,9 @@ step keys are pure functions of the step).  Runs on `cuda` unless
         --steps 4 --batch 4 --device cpu [--ckpt-dir D --ckpt-every 2] \\
         [--resume]
 
-LM training covers the dense transformer archs (`configs.ARCH_IDS`); the
-JAX launcher's encdec branch (whisper-base) is not ported.
+LM training covers every token arch of `configs.ARCH_IDS`: the dense and
+MoE transformers, and whisper-base's encoder-decoder, whose batches carry
+stub frames drawn from the step's key as the JAX launcher draws them.
 """
 from __future__ import annotations
 
@@ -43,12 +44,19 @@ def lm_batch(spec, batch: dict, key, step: int) -> dict:
     """The step's loss batch: tokens and labels, or for an "embeddings"
     arch the labels with stub embeddings N(0, 0.02^2) of shape tokens.shape
     + (d_model,), drawn from fold_in(key, step) as the JAX launcher draws
-    them."""
+    them; an encdec arch's also carries stub frames N(0, 0.02^2) (batch,
+    frontend_ctx, d_model) from the same key, as the JAX launcher's."""
     if spec.input_mode == "embeddings":
         shape = tuple(batch["tokens"].shape) + (spec.cfg.d_model,)
         emb = prng.normal(prng.fold_in(key, step), shape) * _EMBED_SCALE
         return {"embeddings": emb, "labels": batch["labels"]}
-    return {"tokens": batch["tokens"], "labels": batch["labels"]}
+    out = {"tokens": batch["tokens"], "labels": batch["labels"]}
+    if spec.family == "encdec":
+        shape = (batch["tokens"].shape[0], spec.frontend_ctx,
+                 spec.cfg.d_model)
+        out["frames"] = prng.normal(prng.fold_in(key, step),
+                                    shape) * _EMBED_SCALE
+    return out
 
 
 def train_lm(args, *, spec=None, on_step: Optional[Callable] = None) -> dict:
@@ -61,10 +69,10 @@ def train_lm(args, *, spec=None, on_step: Optional[Callable] = None) -> dict:
     device = torch.device(args.device)
     if spec is None:
         spec = get_arch(args.arch, reduced=args.reduced)
-    if spec.family != "transformer":
+    if spec.family not in ("transformer", "encdec"):
         raise NotImplementedError(
             f"{spec.name}: LM training of the {spec.family!r} family is not "
-            "ported (ROADMAP.md, queue 1 item 5); the dense transformer "
+            "ported (ROADMAP.md, queue 1 item 5); the transformer and encdec "
             "archs train")
     arch = Arch(spec)
     opt_cfg = AdamWCfg(lr=args.lr, total_steps=args.steps,
@@ -188,7 +196,7 @@ def train_diffusion(args, *, spec=None, on_step: Optional[Callable] = None
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS,
-                    help="LM training of a dense transformer arch")
+                    help="LM training of a token arch")
     ap.add_argument("--diffusion")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)

@@ -1,6 +1,7 @@
 """Shared neural components: initializers, norms, rotary embedding, the
-(gated) MLP, the attention block with its two KV-cache branches and the
-causal-LM loss.
+(gated) MLP, the mixture-of-experts layer in its three dispatch forms,
+the attention block with its two KV-cache branches and its cross-
+attention source, and the causal-LM loss.
 
 Parameters keep the JAX package's orientation: a dense weight is
 (d_in, d_out) and is applied as `x @ W`.  Norms compute in f32 and cast
@@ -117,6 +118,17 @@ def activation(name: str, x: Tensor) -> Tensor:
     raise ValueError(name)
 
 
+def mlp_params(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+               gated: bool = True, device="cpu") -> Params:
+    """w_up (d_model, d_ff), w_down (d_ff, d_model), and w_gate like w_up
+    when `gated`, at the JAX init's scales."""
+    init = lambda a, b: dense_init(gen, a, b, dtype, None, device)
+    p = {"w_up": init(d_model, d_ff), "w_down": init(d_ff, d_model)}
+    if gated:
+        p["w_gate"] = init(d_model, d_ff)
+    return p
+
+
 def mlp_apply(p: Params, x: Tensor, act: str = "silu") -> Tensor:
     """up -> activation -> down; gated (act(x W_gate) * x W_up) when the
     params carry `w_gate`."""
@@ -126,6 +138,221 @@ def mlp_apply(p: Params, x: Tensor, act: str = "silu") -> Tensor:
     else:
         up = activation(act, up)
     return up @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (top-k routing), the JAX package's three dispatch forms
+# ---------------------------------------------------------------------------
+# Plain PyTorch, as the JAX package computes them outside any Pallas kernel:
+# routing in f32, the expert products batched over experts (`bmm` /
+# `einsum`).  Every form gives the JAX numbers' semantics exactly, drops
+# included:
+#
+#   * top-k breaks ties toward the lower expert id, as `jax.lax.top_k`
+#     does (a stable descending sort; `torch.topk` promises no order);
+#   * the capacity max(1, int(capacity_factor * N * k / E)) counts every
+#     row the layer is given, padded and inactive ones too;
+#   * "capacity" (GShard) counts each of the k choices' positions in its
+#     own pass, so the (expert, slot) of a first choice and of a second
+#     may coincide: their tokens are summed into one expert input, as the
+#     JAX dispatch einsum sums them;
+#   * "sorted" orders the (token, choice) pairs by expert with a stable
+#     sort, keeps the first `cap` of each expert's run, and adds each
+#     token's kept contributions in ascending expert order, from zeros, in
+#     x's dtype — the order JAX's `.at[tok].add` takes — by gathers and
+#     adds, not by `index_add_`, whose atomics on the card would sum in an
+#     order that changes from run to run.
+def _expert_stack(gen, n: int, d_in: int, d_out: int, dtype,
+                  device) -> Tensor:
+    """(n, d_in, d_out) N(0, 1/d_in) experts drawn in f32 and cast, a few
+    experts at a time: the f32 draw of a whole stack at full width
+    (llama4's (128, 5120, 8192): 21.5 GB) would not fit beside it."""
+    out = torch.empty((n, d_in, d_out), dtype=dtype, device=device)
+    chunk = max(1, (1 << 28) // (d_in * d_out))
+    for e in range(0, n, chunk):
+        m = min(chunk, n - e)
+        w = torch.randn((m, d_in, d_out), generator=gen,
+                        dtype=torch.float32, device=gen.device)
+        out[e:e + m] = (w / math.sqrt(d_in)).to(device=device, dtype=dtype)
+    return out
+
+
+def moe_params(gen: torch.Generator, d_model: int, d_ff: int,
+               n_experts: int, dtype, n_shared: int = 0,
+               d_ff_shared: Optional[int] = None, device="cpu") -> Params:
+    """The router (d_model, E) in f32 whatever the dtype, the experts'
+    w_gate / w_up (E, d_model, d_ff) and w_down (E, d_ff, d_model), and
+    with `n_shared` a gated shared expert of d_ff_shared (or d_ff *
+    n_shared), at the JAX init's scales."""
+    p = {"router": dense_init(gen, d_model, n_experts, torch.float32, None,
+                              device),
+         "w_gate": _expert_stack(gen, n_experts, d_model, d_ff, dtype,
+                                 device),
+         "w_up": _expert_stack(gen, n_experts, d_model, d_ff, dtype, device),
+         "w_down": _expert_stack(gen, n_experts, d_ff, d_model, dtype,
+                                 device)}
+    if n_shared:
+        p["shared"] = mlp_params(gen, d_model, d_ff_shared or d_ff * n_shared,
+                                 dtype, device=device)
+    return p
+
+
+def moe_route(p: Params, xt: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+    """Token-choice routing of xt (N, D): (gate values (N, k) f32,
+    renormalized to sum 1; expert ids (N, k) int64), the k most probable
+    experts of softmax(x W_router) in f32, ties to the lower id."""
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    return vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def moe_capacity(n_rows: int, top_k: int, n_experts: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert: max(1, int(capacity_factor * N * k / E))."""
+    return max(1, int(capacity_factor * n_rows * top_k / n_experts))
+
+
+def moe_routing(p: Params, x: Tensor, *, top_k: int, impl: str,
+                capacity_factor: float = 1.25) -> Tuple[Tensor, Tensor]:
+    """What the layer of form `impl` decides for x (B, S, D): (expert ids
+    (N, k), kept (N, k) bool: false where the choice was dropped for
+    capacity).  The dense form drops nothing."""
+    xt = x.reshape(-1, x.shape[-1])
+    _, idx = moe_route(p, xt, top_k)
+    E = p["router"].shape[-1]
+    cap = moe_capacity(xt.shape[0], top_k, E, capacity_factor)
+    if impl == "dense":
+        kept = torch.ones_like(idx, dtype=torch.bool)
+    elif impl == "capacity":
+        kept = torch.stack([_capacity_slot(idx[:, kk], E)[0] < cap
+                            for kk in range(top_k)], dim=1)
+    elif impl == "sorted":
+        order, _, valid = _sorted_slots(idx, E, cap)
+        kept = torch.empty_like(valid)
+        kept[order] = valid
+        kept = kept.reshape(idx.shape)
+    else:
+        raise ValueError(impl)
+    return idx, kept
+
+
+def moe_apply(p: Params, x: Tensor, *, top_k: int, act: str = "silu",
+              capacity_factor: float = 1.25) -> Tensor:
+    """Dense one-hot dispatch: every expert computes every token, masked
+    to the tokens that chose it, combined by the gate values (no
+    capacity).  (B, S, D) -> (B, S, D)."""
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    gate, idx = moe_route(p, x.reshape(B * S, D), top_k)
+    onehot = F.one_hot(idx, E).float()                        # (N, k, E)
+    combine = (onehot * gate[..., None]).sum(1).reshape(B, S, E)
+    mask = (combine > 0).to(x.dtype)
+    xe = mask.permute(2, 0, 1)[..., None] * x[None]           # (E, B, S, D)
+    h = torch.einsum("ebsd,edf->ebsf", xe, p["w_gate"])
+    h = activation(act, h) * torch.einsum("ebsd,edf->ebsf", xe, p["w_up"])
+    y = torch.einsum("ebsf,efd->ebsd", h, p["w_down"])
+    out = torch.einsum("ebsd,bse->bsd", y, combine.to(x.dtype))
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, act)
+    return out
+
+
+def _capacity_slot(e: Tensor, E: int) -> Tuple[Tensor, Tensor]:
+    """For one choice column e (N,): (each token's position among the
+    tokens that chose its expert in this column, the one-hot (N, E))."""
+    oh = F.one_hot(e, E)
+    pos = torch.cumsum(oh, dim=0) * oh - 1
+    return pos.gather(1, e[:, None])[:, 0], oh
+
+
+def moe_capacity_apply(p: Params, x: Tensor, *, top_k: int,
+                       act: str = "silu",
+                       capacity_factor: float = 1.25) -> Tensor:
+    """GShard capacity dispatch: (tokens x experts x capacity) one-hot
+    dispatch and combine; a choice past its expert's capacity is dropped
+    (the residual passes through)."""
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    N = B * S
+    cap = moe_capacity(N, top_k, E, capacity_factor)
+    xt = x.reshape(N, D)
+    gate, idx = moe_route(p, xt, top_k)
+    dispatch = torch.zeros((N, E, cap), dtype=torch.bool, device=x.device)
+    combine = torch.zeros((N, E, cap), dtype=torch.float32, device=x.device)
+    for kk in range(top_k):
+        slot, oh = _capacity_slot(idx[:, kk], E)
+        ok = slot < cap
+        slot_oh = F.one_hot(slot.clamp(max=cap - 1), cap).float() \
+            * ok[:, None]
+        d_k = oh.float()[:, :, None] * slot_oh[:, None, :]
+        dispatch = dispatch | (d_k > 0)
+        combine = combine + d_k * gate[:, kk][:, None, None]
+    xe = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), xt)
+    h = torch.bmm(xe, p["w_gate"])
+    h = activation(act, h) * torch.bmm(xe, p["w_up"])
+    y = torch.bmm(h, p["w_down"])
+    out = torch.einsum("nec,ecd->nd", combine.to(x.dtype), y).reshape(B, S, D)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, act)
+    return out
+
+
+def _sorted_slots(idx: Tensor, E: int,
+                  cap: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """The sorted form's placement of the N k (token, choice) pairs, flat
+    in token-major order: (the stable order by expert id, each sorted
+    pair's slot eid * cap + position in its expert's run (E * cap where
+    dropped), kept (sorted order))."""
+    eid = idx.reshape(-1)
+    order = torch.sort(eid, stable=True).indices
+    eid_s = eid[order]
+    starts = torch.searchsorted(eid_s, torch.arange(E, device=eid.device))
+    pos = torch.arange(eid.numel(), device=eid.device) - starts[eid_s]
+    valid = pos < cap
+    slot = torch.where(valid, eid_s * cap + pos,
+                       torch.full_like(pos, E * cap))
+    return order, slot, valid
+
+
+def moe_sorted_apply(p: Params, x: Tensor, *, top_k: int, act: str = "silu",
+                     capacity_factor: float = 1.25) -> Tensor:
+    """Sort-based dispatch: the (token, choice) pairs sorted by expert,
+    the first `cap` of each expert's run gathered into an (E, cap, D)
+    buffer, batched expert products, then each token's kept
+    contributions gathered back and added in ascending expert order."""
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    N = B * S
+    cap = moe_capacity(N, top_k, E, capacity_factor)
+    xt = x.reshape(N, D)
+    gate, idx = moe_route(p, xt, top_k)
+    order, slot, valid = _sorted_slots(idx, E, cap)
+    tok_s = order // top_k                                   # owning token
+    gv_s = gate.reshape(-1)[order]
+    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), xt[tok_s])        # dropped -> the last row
+    xe = buf[:-1].reshape(E, cap, D)
+    h = torch.bmm(xe, p["w_gate"])
+    h = activation(act, h) * torch.bmm(xe, p["w_up"])
+    y = torch.bmm(h, p["w_down"]).reshape(E * cap, D)
+    contrib = torch.where(valid, gv_s, 0.0).to(x.dtype)[:, None] \
+        * y[slot.clamp(max=E * cap - 1)]
+    # each token's k pairs in sorted (= ascending expert) order
+    where = torch.empty_like(order)
+    where[order] = torch.arange(order.numel(), device=x.device)
+    where = where.reshape(N, top_k).sort(dim=1).values
+    out = torch.zeros((N, D), dtype=x.dtype, device=x.device)
+    for kk in range(top_k):
+        out = out + contrib[where[:, kk]]
+    out = out.reshape(B, S, D)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, act)
+    return out
+
+
+MOE_IMPLS = {"dense": moe_apply, "capacity": moe_capacity_apply,
+             "sorted": moe_sorted_apply}
 
 
 # ---------------------------------------------------------------------------
@@ -153,16 +380,33 @@ def decode_positions(seq_len: int, cache_len, device) -> Tensor:
     return ar + cache_len
 
 
+def _project(x: Tensor, w: Tensor) -> Tensor:
+    """x @ w in the promoted dtype of the two, as jnp's matmul promotes
+    (the encoder-decoder's f32 memory against bf16 weights: f32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 def attn_apply(p: Params, x: Tensor, *, n_heads: int, n_kv: int, d_head: int,
                causal: bool = True, window: Optional[int] = None,
                rope: Optional[Tuple[Tensor, Tensor]] = None,
                kv_cache: Optional[Tuple[Tensor, Tensor]] = None,
-               cache_len=None) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
+               cache_len=None,
+               x_kv: Optional[Tensor] = None
+               ) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
     """Returns (out, new_kv); new_kv is the cache pair when one was given.
 
     `rope` is the (cos, sin) table of the rows' positions (`rope_table`);
-    None applies no rotary embedding (the DiT).
+    None applies no rotary embedding (the DiT, whisper's encoder and its
+    cross-attention: the JAX package's rope_theta = 0).
 
+    * `x_kv` (B, Sk, D): cross-attention, K and V projected from x_kv (in
+      the dtype x_kv and the weights promote to: the f32 memory pool of
+      the token engine gives f32 K/V under bf16 weights), no cache, no
+      rotary embedding; the attention promotes q with them and returns
+      q's dtype.
     * No cache: self-attention over x (the DiT passes causal=False).
     * Per-slot decode (x (B, 1, D), `cache_len` a (B,) tensor): row b's K/V
       is written at its own position cache_len[b], then one query per row
@@ -175,6 +419,15 @@ def attn_apply(p: Params, x: Tensor, *, n_heads: int, n_kv: int, d_head: int,
     write spares a copy of every layer's cache each round)."""
     B, Sq, _ = x.shape
     q = (x @ p["wq"]).reshape(B, Sq, n_heads, d_head)
+    if x_kv is not None:
+        if rope is not None or kv_cache is not None:
+            raise ValueError("cross-attention takes no rotary embedding "
+                             "and no cache")
+        Sk = x_kv.shape[1]
+        k = _project(x_kv, p["wk"]).reshape(B, Sk, n_kv, d_head)
+        v = _project(x_kv, p["wv"]).reshape(B, Sk, n_kv, d_head)
+        out = attn_ops.attention(q, k, v, causal=causal, window=window)
+        return out.reshape(B, Sq, n_heads * d_head) @ p["wo"], None
     k = (x @ p["wk"]).reshape(B, Sq, n_kv, d_head)
     v = (x @ p["wv"]).reshape(B, Sq, n_kv, d_head)
 

@@ -1,35 +1,42 @@
 """Architecture interface over the model families the launchers and the
-token engine consume — the transformer family for now:
+token engine consume — the transformer family (dense and MoE) and the
+whisper-style encoder-decoder:
 
     init(seed, device)               -> params (random, from a seed)
     loss(params, batch)              -> scalar (causal-LM cross-entropy)
     init_cache(batch, max_len)       -> per-layer zeroed (k, v) caches
+    encode_memory(params, frames)    -> encoder memory (encdec), else None
     prefill(params, batch, max_len)  -> (logits_last, caches)
-    decode(params, token, caches, cache_len) -> (logits, caches)
+    decode(params, token, caches, cache_len, memory=None)
+                                     -> (logits, caches)
 
 `input_mode` is "tokens" for the LM archs and "embeddings" for the
 entries whose modality frontend is a stub (internvl2-1b): their batches
-carry (B, S, D) embeddings.  The other families of the JAX package (rwkv,
-zamba, encdec) are not ported: an `Arch` over one of them raises.
+carry (B, S, D) embeddings.  An encdec batch carries "frames" (B,
+frontend_ctx, D), the stub frontend's output, or for prefill the
+encoder's "memory" itself.  The other families of the JAX package (rwkv,
+zamba) are not ported: an `Arch` over one of them raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import transformer
+from . import transformer, zoo
 
-FAMILIES = ("transformer",)
+FAMILIES = ("transformer", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                   # transformer (rwkv | zamba | encdec: not ported)
+    family: str                   # transformer | encdec (rwkv | zamba: not
+                                  # ported)
     cfg: Any
     input_mode: str = "tokens"    # tokens | embeddings (stub frontend)
+    frontend_ctx: int = 0         # encoder frames (encdec)
 
 
 class Arch:
@@ -40,34 +47,64 @@ class Arch:
                 f"(ported: {FAMILIES})")
         self.spec = spec
         self.cfg = spec.cfg
+        self.encdec = spec.family == "encdec"
 
     def init(self, seed: int = 0, device="cuda") -> Any:
         """Random weights drawn on `device` from a generator seeded with
         `seed` (so a full-width init never stages through the host)."""
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
+        if self.encdec:
+            return zoo.encdec_init(self.cfg, gen, device)
         return transformer.init_params(self.cfg, gen, device)
 
     def loss(self, params: Any, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
         """The causal-LM loss of `batch` ("labels", and "tokens" or
-        "embeddings"), with grad where grad mode is on."""
+        "embeddings"; encdec: "tokens" and "frames"), with grad where grad
+        mode is on."""
+        if self.encdec:
+            return zoo.encdec_loss(params, self.cfg, batch["frames"],
+                                   batch["tokens"], batch["labels"])
         return transformer.lm_loss(params, self.cfg, batch.get("tokens"),
                                    batch["labels"],
                                    embeddings=batch.get("embeddings"))
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
+        if self.encdec:
+            return zoo.encdec_init_cache(self.cfg, batch, max_len,
+                                         device=device)
         return transformer.init_cache(self.cfg, batch, max_len,
                                       device=device)
 
+    def encode_memory(self, params: Any, frames: Optional[torch.Tensor]
+                      ) -> Optional[torch.Tensor]:
+        """The encoder memory (B, frontend_ctx, D) in cfg.dtype for an
+        encdec arch; None for the others."""
+        if not self.encdec:
+            return None
+        with torch.no_grad():
+            return zoo.encode(params, self.cfg, frames)
+
     def prefill(self, params: Any, batch: Dict[str, torch.Tensor],
                 max_len: int) -> Tuple[torch.Tensor, Any]:
+        if self.encdec:
+            memory = batch.get("memory")
+            if memory is None:
+                memory = self.encode_memory(params, batch["frames"])
+            return zoo.prefill(params, self.cfg, batch["tokens"], memory,
+                               max_len)
         return transformer.prefill(params, self.cfg, batch["tokens"],
                                    max_len)
 
     def decode(self, params: Any, token: torch.Tensor, caches: Any,
-               cache_len) -> Tuple[torch.Tensor, Any]:
-        """One-token serve step.  token: (B, 1); the caches are updated in
-        place and returned."""
+               cache_len, memory: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Any]:
+        """One-token serve step.  token: (B, 1); `memory` the encoder
+        memory of an encdec arch; the caches are updated in place and
+        returned."""
+        if self.encdec:
+            return zoo.decode_step(params, self.cfg, token, memory, caches,
+                                   cache_len)
         return transformer.decode_step(params, self.cfg, token, caches,
                                        cache_len)

@@ -1,10 +1,14 @@
-"""Decoder-only transformer LM family, the dense form (gemma3-1b,
-deepseek-coder-33b, nemotron-4-15b, llama3-405b, internvl2-1b):
+"""Decoder-only transformer LM family (gemma3-1b, deepseek-coder-33b,
+nemotron-4-15b, llama3-405b, internvl2-1b, qwen3-moe-30b-a3b,
+llama4-maverick-400b-a17b):
 
   * GQA attention with RoPE (any n_kv_heads, incl. MQA n_kv = 1)
   * a per-pattern-position sliding window (gemma3's 5 local : 1 global)
   * gated (SwiGLU) or plain FFN (squared ReLU for nemotron-4), RMSNorm
     with the (1 + gamma) scale
+  * MoE layers at the pattern positions `layer_moe` marks (top-k routing,
+    an optional shared expert; llama4's dense / MoE alternation), in the
+    dispatch form `MoECfg.impl` names (`common.MOE_IMPLS`)
 
 The JAX package scans over pattern groups with params stacked
 (n_groups, ...) per pattern position, then runs unrolled remainder layers.
@@ -26,8 +30,8 @@ and `decode_step` run without grad.  `forward(..., embeddings=)` feeds
 (B, S, D) embeddings in place of token ids (an arch whose modality
 frontend is a stub: `ArchSpec.input_mode` "embeddings").
 
-MoE fields stay in the config for parity with the JAX package's, but an
-MoE layer is not ported: `init_params` refuses a config that has one.
+An MoE layer holds "moe" (the f32 router, the expert stacks, "shared")
+where a dense one holds "mlp".
 """
 from __future__ import annotations
 
@@ -46,6 +50,17 @@ Cache = List[Tuple[Tensor, Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden
+    n_shared: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    impl: str = "dense"          # dense | capacity | sorted (common.py)
+
+
+@dataclasses.dataclass(frozen=True)
 class TransformerCfg:
     name: str
     n_layers: int
@@ -59,10 +74,10 @@ class TransformerCfg:
     gated_mlp: bool = True
     rope_theta: float = 10000.0
     # pattern description (length P): per-position sliding window (None =
-    # global) and whether the FFN is MoE (not ported)
+    # global) and whether the FFN is MoE
     layer_windows: Tuple[Optional[int], ...] = (None,)
     layer_moe: Tuple[bool, ...] = (False,)
-    moe: Optional[Any] = None
+    moe: Optional[MoECfg] = None
     tie_embeddings: bool = True
     dtype: Any = torch.float32
     remat: bool = True
@@ -83,36 +98,42 @@ class TransformerCfg:
         """Sliding window of layer `layer` in execution order."""
         return self.layer_windows[layer % self.pattern]
 
+    def is_moe(self, layer: int) -> bool:
+        """Whether layer `layer` (execution order) has an MoE FFN."""
+        return self.moe is not None and \
+            self.layer_moe[layer % len(self.layer_moe)]
+
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _layer_params(gen, cfg: TransformerCfg, device) -> Params:
+def _layer_params(gen, cfg: TransformerCfg, layer: int, device) -> Params:
     d, dt = cfg.d_model, cfg.dtype
-    init = lambda a, b: common.dense_init(gen, a, b, dt, None, device)
-    mlp = {"w_up": init(d, cfg.d_ff), "w_down": init(cfg.d_ff, d)}
-    if cfg.gated_mlp:
-        mlp["w_gate"] = init(d, cfg.d_ff)
-    return {
-        "ln_attn": torch.zeros(d, dtype=dt, device=device),
-        "ln_mlp": torch.zeros(d, dtype=dt, device=device),
-        "attn": common.attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.d_head, dt, device),
-        "mlp": mlp}
+    if cfg.is_moe(layer):
+        m = cfg.moe
+        ff = {"moe": common.moe_params(gen, d, m.d_ff, m.n_experts, dt,
+                                       m.n_shared, m.d_ff_shared or None,
+                                       device)}
+    else:
+        ff = {"mlp": common.mlp_params(gen, d, cfg.d_ff, dt, cfg.gated_mlp,
+                                       device)}
+    return {"ln_attn": torch.zeros(d, dtype=dt, device=device),
+            "ln_mlp": torch.zeros(d, dtype=dt, device=device),
+            "attn": common.attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.d_head, dt, device),
+            **ff}
 
 
 def init_params(cfg: TransformerCfg, gen: torch.Generator,
                 device="cpu") -> Params:
     """Random weights at the JAX init's scales, drawn from `gen` (on the
     generator's device) and placed on `device`."""
-    if any(cfg.layer_moe) and cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported")
     params: Params = {
         "embed": common.embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype,
                                    device),
         "ln_f": torch.zeros(cfg.d_model, dtype=cfg.dtype, device=device),
-        "layers": [_layer_params(gen, cfg, device)
-                   for _ in range(cfg.n_layers)]}
+        "layers": [_layer_params(gen, cfg, layer, device)
+                   for layer in range(cfg.n_layers)]}
     if not cfg.tie_embeddings:
         params["unembed"] = common.dense_init(gen, cfg.d_model, cfg.vocab,
                                               cfg.dtype, None, device)
@@ -132,7 +153,14 @@ def _block(p: Params, cfg: TransformerCfg, layer: int, x: Tensor,
         kv_cache=kv_cache, cache_len=cache_len)
     x = x + attn_out
     h = common.rms_norm(x, p["ln_mlp"])
-    return x + common.mlp_apply(p["mlp"], h, act=cfg.act), new_cache
+    if "moe" in p:
+        m = cfg.moe
+        ff = common.MOE_IMPLS[m.impl](p["moe"], h, top_k=m.top_k,
+                                      act=cfg.act,
+                                      capacity_factor=m.capacity_factor)
+    else:
+        ff = common.mlp_apply(p["mlp"], h, act=cfg.act)
+    return x + ff, new_cache
 
 
 def _trunk(params: Params, cfg: TransformerCfg, tokens: Optional[Tensor],

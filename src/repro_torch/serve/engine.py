@@ -11,7 +11,14 @@ small done/progress mask at most every `sync_every` rounds — exactly at
 the next possible retirement when no eos intervenes — and fetches the
 output row of each finished slot.  On the card each layer's prefill
 attention is the causal flash kernel and each decode round's attention
-the one-launch `decode_attention` kernel.
+the one-launch `decode_attention` kernel.  An encoder-decoder arch
+(whisper-base) also keeps an f32 encoder-memory pool, one (frontend_ctx,
+d_model) row a slot, as the JAX engine does: each admission wave's frames
+are encoded once at the wave's width, its prefill reads the fresh memory
+in the config's dtype, and the wave's rows are merged into the pool,
+which every decode round reads (so a bf16 config's decode cross-
+attention runs over f32 keys); the row travels with the slot through
+suspend and resume.
 
 `DiffusionEngine` runs one gDDIM update for every active slot per round,
 each slot at its own step index k and with its own sampler config (SDE
@@ -49,7 +56,7 @@ host (`_suspend_slot`) and restores them bitwise (`_resume_slot`).
 
 Both engines serve closed request lists (`serve`) and arrival streams with
 deadline admission and preemption (`serve_stream`) on one device; mesh
-mode and encoder-decoder memory are not ported.
+mode is not ported.
 """
 from __future__ import annotations
 
@@ -84,7 +91,8 @@ def _place(tree: Any, device: torch.device) -> Any:
 
 
 class TokenEngine(ServeLoop):
-    """Continuous-batching greedy decode over a transformer `Arch`.
+    """Continuous-batching greedy decode over a transformer or an
+    encoder-decoder `Arch` (whose requests carry `frames`).
 
         engine = TokenEngine(arch, params, batch_size=4, max_len=1024)
         results = engine.serve([ServeRequest(rid=0, workload="token",
@@ -109,6 +117,11 @@ class TokenEngine(ServeLoop):
         self.params = _place(params, self.device)
         self.caches = arch.init_cache(batch_size, max_len, device=self.device)
         self.state = token_state_init(batch_size, max_len, device=self.device)
+        self.memory = None
+        if arch.encdec:
+            self.memory = torch.zeros(
+                (batch_size, arch.spec.frontend_ctx, arch.cfg.d_model),
+                dtype=torch.float32, device=self.device)
         self._prefill = steps_lib.make_prefill_step(arch, max_len)
         self._decode = steps_lib.make_token_round_step(arch)
         self._snapshot = steps_lib.make_mask_snapshot()
@@ -124,9 +137,6 @@ class TokenEngine(ServeLoop):
         if r.workload != "token":
             raise ValueError(f"request {r.rid}: workload {r.workload!r}, "
                              "this engine decodes tokens")
-        if r.frames is not None:
-            raise ValueError(f"request {r.rid}: encoder frames are not "
-                             "served (no encdec arch is ported)")
         if r.prompt_len < 1:
             raise ValueError(f"request {r.rid}: empty prompt")
         if r.max_new < 1:
@@ -136,19 +146,36 @@ class TokenEngine(ServeLoop):
             raise ValueError(
                 f"request {r.rid}: prompt_len {r.prompt_len} + max_new "
                 f"{r.max_new} exceeds max_len {self.max_len}")
+        if self.memory is not None:
+            if r.frames is None:
+                raise ValueError(f"request {r.rid}: encdec arch needs "
+                                 "frames")
+            if r.frames.shape != self.memory.shape[1:]:
+                raise ValueError(f"request {r.rid}: frames of shape "
+                                 f"{r.frames.shape}, the encoder takes "
+                                 f"{tuple(self.memory.shape[1:])}")
 
     @torch.no_grad()
     def _admit_wave(self, group: List[ServeRequest], free: List[int]) -> None:
         # prefill width-bucketed to the wave's power-of-two size: a small
         # wave does not pay full-batch prefill FLOPs; padded rows (zero
-        # prompts) are computed and dropped at the scatter
+        # prompts, zero frames) are computed and dropped at the scatter
         L, n = group[0].prompt_len, len(group)
         G = bucket_pow2(n, self.batch_size)
         toks = np.zeros((G, L), np.int32)
         for g, req in enumerate(group):
             toks[g] = req.tokens
-        logits_last, caches_g = self._prefill(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.memory is not None:
+            # one encode a wave; its prefill reads the memory in the
+            # config's dtype, the pool keeps it in f32
+            frames = np.zeros((G,) + tuple(self.memory.shape[1:]),
+                              np.float32)
+            for g, req in enumerate(group):
+                frames[g] = req.frames
+            batch["memory"] = self.arch.encode_memory(
+                self.params, torch.from_numpy(frames).to(self.device))
+        logits_last, caches_g = self._prefill(self.params, batch)
         self.n_prefill_calls += 1
         self.prefill_widths.append(G)
 
@@ -159,6 +186,8 @@ class TokenEngine(ServeLoop):
         for (dk, dv), (sk, sv) in zip(self.caches, caches_g):
             dk[ids] = sk[:n].to(dk.dtype)
             dv[ids] = sv[:n].to(dv.dtype)
+        if self.memory is not None:
+            self.memory[ids] = batch["memory"][:n].to(self.memory.dtype)
         # a slot born done (budget 1, or the prefill token is already eos)
         # starts inactive; the first poll retires it without a round
         first = torch.argmax(logits_last[:n], dim=-1).to(torch.int32)
@@ -177,7 +206,8 @@ class TokenEngine(ServeLoop):
 
     def _round(self) -> None:
         self.state, self.caches = self._decode(self.params, self.state,
-                                               self.caches, self.eos_id)
+                                               self.caches, self.eos_id,
+                                               memory=self.memory)
         self.n_decode_steps += 1
         for s in self.slots.active():
             s.data["n_out"] += 1
@@ -215,19 +245,23 @@ class TokenEngine(ServeLoop):
 
     @torch.no_grad()
     def _suspend_slot(self, slot):
-        # the state row (fetched while still active) and every layer's
-        # (k, v) cache row; then the device row stops advancing
+        # the state row (fetched while still active), every layer's (k, v)
+        # cache row and the memory row of an encdec arch; then the device
+        # row stops advancing
         i = slot.index
-        payload = (row_fetch(self.state, i), row_fetch(self.caches, i))
+        payload = (row_fetch(self.state, i), row_fetch(self.caches, i),
+                   None if self.memory is None else row_fetch(self.memory, i))
         self.state.active[i] = False
         return payload
 
     @torch.no_grad()
     def _resume_slot(self, request: ServeRequest, shadow: dict, payload,
                      index: int) -> None:
-        state_row, cache_row = payload
+        state_row, cache_row, mem_row = payload
         row_restore(self.caches, cache_row, index)
         row_restore(self.state, state_row, index)
+        if mem_row is not None:
+            row_restore(self.memory, mem_row, index)
 
     def _remaining_lb(self, slot) -> int:
         return slot.data["budget"] - slot.data["n_out"]

@@ -1,6 +1,7 @@
-"""Parity of the port's attention with the JAX package's, in the two forms
-the CUDA kernel covers: non-causal (the DiT) and causal with a window, GQA,
-q_offset and Sq != Sk (LM prefill).
+"""Parity of the port's attention with the JAX package's, in the forms
+the CUDA kernel covers: non-causal (the DiT; cross-attention with Sq != Sk,
+GQA, a window and q_offset) and causal with a window, GQA, q_offset and Sq
+!= Sk (LM prefill), and the non-causal gradient through `FlashAttention`.
 
 The port's plain version is held against JAX's `attention_ref` and the
 Pallas `flash_attention(..., interpret=True)` on the CPU.  Tier: f32,
@@ -105,6 +106,81 @@ def test_plain_causal_attention_matches_jax_pallas_interpret(q_offset, window,
     torch.testing.assert_close(got_t, got, rtol=0, atol=0)
 
 
+# the non-causal general form (cross-attention): Sq != Sk with a ragged
+# key count, GQA, a window and q_offset (rep, window, q_offset)
+CROSS_CASES = [(1, None, 0), (4, None, 0), (2, 6, 9), (4, 5, 0)]
+
+
+def _cross_inputs(rep, seed, sq=5, sk=37):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, sq, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, sk, 4 // rep, 16)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("rep,window,q_offset", CROSS_CASES)
+def test_plain_cross_attention_matches_jax_ref(rep, window, q_offset):
+    """5 queries over 37 keys, the window counted from query position
+    q_offset + i (keys in (q_pos - window, Sk): no causal bound)."""
+    q, k, v = _cross_inputs(rep, seed=rep + (window or 0))
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=False,
+                        window=window, q_offset=q_offset)
+    want = np.asarray(jref(*map(jnp.asarray, (q, k, v)), causal=False,
+                           window=window, q_offset=q_offset))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_plain_cross_attention_matches_jax_pallas_interpret():
+    """The Pallas kernel's non-causal form at Sk = 40 (a multiple of its
+    key block: at whisper's Sk = 1500 it refuses, F13), GQA rep 2, window
+    6, q_offset 9."""
+    q, k, v = _cross_inputs(2, seed=1, sq=8, sk=40)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=False,
+                        window=6, q_offset=9)
+    want = np.asarray(jflash(*map(jnp.asarray, (q, k, v)), q_offset=9,
+                             causal=False, window=6, block_q=4, block_k=8,
+                             interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_cross_attention_gradient_matches_jax(rep):
+    """The non-causal form with a gradient (Sq 5 != Sk 37, GQA) runs
+    `FlashAttention` on the CPU too (forward `attention_ref`, backward
+    `attention_bwd_ref`): dq, dk, dv within 1e-5 of each gradient's max
+    |g| of `jax.vjp` through the JAX package's `attention_ref`."""
+    q, k, v = _cross_inputs(rep, seed=20 + rep)
+    do = np.random.default_rng(rep).standard_normal(q.shape).astype(
+        np.float32)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = ops.attention(*leaves, causal=False)
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    want = jax.jit(lambda *a: jax.vjp(lambda x, y, z: attention_ref(
+        x, y, z, causal=False), *a[:3])[1](a[3]))(q, k, v, do)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-5 * np.abs(w).max()
+
+
+def test_mixed_dtypes_compute_in_f32_and_return_q_dtype():
+    """bf16 queries over f32 keys and values (the encoder-decoder's decode
+    step over its f32 memory): computed in f32, returned in bf16, within
+    one bf16 ulp of JAX's `attention_ref` on the same dtypes (f32 sums in
+    another order, one rounding to bf16)."""
+    q, k, v = _cross_inputs(1, seed=30)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    got = ops.attention(tq, torch.from_numpy(k), torch.from_numpy(v),
+                        causal=False)
+    want = jref(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k), jnp.asarray(v),
+                causal=False)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert _bf16_ulps(got, torch.from_numpy(
+        np.asarray(want.astype(jnp.float32)))) <= 1
+
+
 def test_kernel_refuses_what_it_does_not_cover():
     """Dispatch never guesses: a tensor that is neither on the CPU nor on a
     card is refused, and the kernel wrapper refuses a CPU tensor rather
@@ -117,6 +193,8 @@ def test_kernel_refuses_what_it_does_not_cover():
         ops.flash_attention(x, x, x)             # a CPU tensor is no kernel input
     with pytest.raises(ValueError):
         ops.flash_attention_causal(x, x, x)      # either form
+    with pytest.raises(ValueError):
+        ops.flash_attention_cross(x, x, x)
 
 
 # ---- the numerical design of the bf16 tensor-core kernel -------------------

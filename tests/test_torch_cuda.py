@@ -24,9 +24,14 @@ Tiers (kernel vs plain version on the same card):
     version on the same canonical noise; through the whole wrapper (the
     kernel's own draw, the dct2 kernel, the commit) within rtol = atol =
     1e-5 of the plain draw and plain DCT;
-  * flash_attention, both forms (the DiT's and the causal/window/GQA LM
-    prefill): f32 within 2e-5, bf16 within 2 bf16 ulp (the ulp at
-    max(|o|, max|o| / 1024), chip_smoke.py's measure);
+  * flash_attention, both forms (the DiT's, and the general one: causal
+    (LM prefill) or not (cross-attention, Sq != Sk with a key tail, whisper's
+    shapes), window, GQA, q_offset): f32 within 2e-5, bf16 within 2 bf16
+    ulp (the ulp at max(|o|, max|o| / 1024), chip_smoke.py's measure);
+    bf16 queries over f32 keys run the f32 kernel, within 1 bf16 ulp;
+  * MoE layers (dense, capacity, sorted): the card's routing and drops
+    identical to the CPU's, outputs within 1e-5 (f32); reduced
+    whisper-base's token streams on the card equal the CPU's;
   * decode_attention (one launch: a cluster per row group, merged in
     distributed shared memory; bf16 on the tensor cores with P split into
     bf16 hi + lo, f32 on the CUDA cores): f32 within 1e-5, bf16 within 2
@@ -42,7 +47,8 @@ Tiers (kernel vs plain version on the same card):
     rounding to bf16 at the end); ei_update at q 0-4, the history stacked
     or as separate rows, in the 16-byte and the scalar instance, a
     misaligned row on the scalar one;
-  * the attention's gradient in its DiT form and its causal form (window
+  * the attention's gradient in its DiT form, its cross form (Sq != Sk,
+    rep 1 and 4) and its causal form (window
     or global, rep 1 and 7; the forward kernel inside an autograd
     Function, the plain backward): dq, dk, dv against torch autograd
     through the plain version in f32, f32 within 1e-5 of each gradient's
@@ -186,11 +192,13 @@ def test_noise_bits_exact_and_normals_within_2_ulp(dev):
 
 
 # (B, S, H, Dh): the reduced DiT, ragged S (24, 100, 200: not multiples of
-# the 64-row tile), d_head 32 / 64 / 128, the engine's (4, 256, 12, 64) and
-# path A's (64, 256, 12, 64)
+# the 64-row tile), d_head 32 / 64 / 128, the engine's (4, 256, 12, 64),
+# path A's (64, 256, 12, 64) and whisper-base's encoder (S 1500 = 23 * 64
+# + 28: a key tail)
 @pytest.mark.parametrize("shape", [(3, 4, 2, 32), (2, 24, 3, 32),
                                    (2, 100, 2, 128), (4, 256, 12, 64),
-                                   (2, 200, 3, 64), (64, 256, 12, 64)])
+                                   (2, 200, 3, 64), (64, 256, 12, 64),
+                                   (2, 1500, 8, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(dev, shape, dtype):
     g = torch.Generator().manual_seed(sum(shape))
@@ -247,12 +255,16 @@ def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
     kc.reset_launches()
     attn_ops.attention(q, q, q, causal=False)
     attn_ops.attention(q, q, q, causal=True, window=3)  # the LM form
-    assert kc.launches()["flash_attention"] == 2
-    with pytest.raises(NotImplementedError):            # not ported: raises
-        attn_ops.attention(q, q, q, causal=False, window=3)
-    with pytest.raises(NotImplementedError):
-        attn_ops.attention(q, q[:, :, :1].contiguous(), q[:, :, :1]
-                           .contiguous(), causal=False)  # GQA, non-causal
+    attn_ops.attention(q, q, q, causal=False, window=3)  # the cross form
+    attn_ops.attention(q, q[:, :, :1].contiguous(), q[:, :, :1]
+                       .contiguous(), causal=False)  # GQA, non-causal
+    assert kc.launches()["flash_attention"] == 4
+    assert kc.launches()[attn_ops.CROSS_COUNT] == 2
+    leaves = [q.clone().requires_grad_() for _ in range(3)]
+    with pytest.raises(NotImplementedError):   # no gradient with a window
+        attn_ops.attention(*leaves, causal=False, window=3)
+    with pytest.raises(TypeError):             # f16 is not a kernel dtype
+        attn_ops.attention(*(q.half(),) * 3, causal=False, window=3)
     with pytest.raises(ValueError):
         attn_ops.flash_attention(*(torch.randn(1, 8, 2, 48, device=dev),) * 3)
     with pytest.raises(ValueError):
@@ -398,6 +410,171 @@ def test_causal_flash_attention_matches_plain_version(dev, case, dtype):
     torch.cuda.synchronize()
     assert kc.launches()["flash_attention"] == 1
     _close(got, want, dtype, 2e-5)
+
+
+# (B, Sq, Hq, Sk, Hkv, Dh, window, q_offset): the non-causal general form
+# (cross-attention).  whisper-base's prefill (G, L, 8, 64) over 1500 encoder
+# keys (a key tail: 1500 = 23 * 64 + 28) and its decode step (one query a
+# row); then GQA, a window with q_offset (a device scalar), d_head 16 / 32
+# (mma.sync) / 128 / 256, a ragged Sk under one tile, rows past the window's
+# reach (no visible key: 0), and Sq > Sk
+CROSS_CASES = [(2, 64, 8, 1500, 8, 64, None, 0),
+               (4, 1, 8, 1500, 8, 64, None, 0),
+               (2, 37, 4, 200, 1, 128, None, 0),
+               (2, 70, 4, 130, 2, 64, 40, 50),
+               (1, 20, 2, 37, 1, 16, None, 0),
+               (2, 33, 4, 100, 2, 32, 10, 7),
+               (1, 16, 4, 40, 2, 256, 8, 60),
+               (1, 90, 2, 20, 2, 64, None, 0)]
+
+
+@pytest.mark.parametrize("case", CROSS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_flash_attention_matches_plain_version(dev, case, dtype):
+    B, Sq, Hq, Sk, Hkv, Dh, window, q_off = case
+    g = torch.Generator().manual_seed(Sq + Sk + Dh)
+    q = torch.randn(B, Sq, Hq, Dh, generator=g).to(dev, dtype)
+    k = torch.randn(B, Sk, Hkv, Dh, generator=g).to(dev, dtype)
+    v = torch.randn(B, Sk, Hkv, Dh, generator=g).to(dev, dtype)
+    off = torch.tensor(q_off, device=dev) if q_off else 0
+    kc.reset_launches()
+    got = attn_ops.attention(q, k, v, causal=False, window=window,
+                             q_offset=off)
+    want = attention_ref(q, k, v, causal=False, window=window,
+                         q_offset=q_off)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    assert n["flash_attention"] == n[attn_ops.CROSS_COUNT] == 1
+    _close(got, want, dtype, 2e-5)
+
+
+def test_mixed_dtype_cross_attention_runs_the_f32_kernel(dev):
+    """whisper's decode step: bf16 queries over the f32 memory pool's keys
+    run the f32 kernel (q upcast) and come back bf16, within 1 bf16 ulp of
+    the plain version (which computes in f32 too)."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(4, 1, 8, 64, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(4, 1500, 8, 64, generator=g).to(dev)
+            for _ in range(2))
+    kc.reset_launches()
+    got = attn_ops.attention(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kc.launches()[attn_ops.CROSS_COUNT] == 1
+    assert got.dtype == torch.bfloat16 and _bf16_ulps(got, want) <= 1
+
+
+@pytest.mark.parametrize("Dh", [32, 64])
+def test_cross_bf16_runs_on_the_tensor_core_kernels(dev, Dh):
+    """A bf16 non-causal call with Sq != Sk launches the general form's
+    tensor-core kernel (wgmma at d_head 64, mma.sync at 32), an f32 one
+    its CUDA-core kernel (names from a profiler trace)."""
+    q = torch.randn(2, 40, 4, Dh, device=dev)
+    kv = torch.randn(2, 300, 2, Dh, device=dev)
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = q.to(dtype), kv.to(dtype)
+        attn_ops.attention(x, y, y, causal=False)       # build, opt in
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):       # a trace may drop its first events
+                attn_ops.attention(x, y, y, causal=False)
+            torch.cuda.synchronize()
+        names[dtype] = {e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "flash" in e.name}
+    bf16 = f"flash_lm_{'wgmma' if Dh == 64 else 'mma'}_kernel"
+    assert len(names[torch.float32]) == 1 and "flash_lm_kernel" in \
+        names[torch.float32].pop()
+    assert len(names[torch.bfloat16]) == 1 and bf16 in \
+        names[torch.bfloat16].pop()
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_gradient_matches_plain_version(dev, rep, dtype):
+    """With grad on, the non-causal form at Sq != Sk (the encoder-decoder's
+    cross-attention in training) runs `FlashAttention`: the forward kernel
+    once (counted as the cross form) and the plain backward; the output
+    and dq, dk, dv against torch autograd through the plain version in f32:
+    f32 within 2e-5 / 1e-5 of scale, bf16 within 2 bf16 ulp."""
+    g = torch.Generator().manual_seed(rep)
+    B, Sq, Sk, Hkv, Dh = 2, 96, 300, 2, 64
+    q, do = (torch.randn(B, Sq, Hkv * rep, Dh, generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, Hkv, Dh, generator=g).to(dev, dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kc.reset_launches()
+    out = attn_ops.attention(*leaves, causal=False)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    n = kc.launches()
+    assert n["flash_attention"] == n[attn_ops.CROSS_COUNT] == 1
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_leaves, causal=False)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    for a, b, tol in [(out.detach(), ref_out.detach(), 2e-5)] + [
+            (a, b, 1e-5) for a, b in zip(got, want)]:
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+        else:
+            assert _bf16_ulps(a, b.to(dtype)) <= 2
+
+
+@pytest.mark.parametrize("impl", ["dense", "capacity", "sorted"])
+def test_moe_layer_card_matches_cpu(dev, impl):
+    """An MoE layer (64 tokens, 16 experts, top-4, a shared expert, cap 4
+    so choices drop) on the card against the CPU, f32: expert ids and
+    kept choices identical, the output within 1e-5 of scale."""
+    from repro_torch.models import common
+    g = torch.Generator().manual_seed(1)
+    p = common.moe_params(g, 32, 24, 16, torch.float32, n_shared=1,
+                          d_ff_shared=24)
+    x = torch.randn(4, 16, 32, generator=g)
+    pd = {k: (v.to(dev) if torch.is_tensor(v) else
+              {kk: vv.to(dev) for kk, vv in v.items()}) for k, v in p.items()}
+    kw = dict(top_k=4, capacity_factor=0.3)
+    idx, kept = common.moe_routing(p, x, impl=impl, **kw)
+    idx_d, kept_d = common.moe_routing(pd, x.to(dev), impl=impl, **kw)
+    assert torch.equal(idx_d.cpu(), idx) and torch.equal(kept_d.cpu(), kept)
+    want = common.MOE_IMPLS[impl](p, x, **kw)
+    got = common.MOE_IMPLS[impl](pd, x.to(dev), **kw)
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_reduced_encdec_card_matches_cpu(dev):
+    """Reduced whisper-base (f32, d_head 16: the encoder and the cross-
+    attention run the general non-causal kernel, the decoder the causal
+    one and decode_attention) on the card and on the CPU with the same
+    seeded weights: a TokenEngine serve of 5 requests gives equal token
+    streams."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import ServeRequest, TokenEngine
+    arch = Arch(get_arch("whisper-base", reduced=True))
+    params = arch.init(seed=2, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [ServeRequest(rid=i, workload="token", max_new=6,
+                         frames=rng.standard_normal((32, 64)).astype(
+                             np.float32),
+                         tokens=rng.integers(2, 256, 5 + i % 2).astype(
+                             np.int32)) for i in range(5)]
+    out = {}
+    for d in ("cuda", "cpu"):
+        kc.reset_launches()
+        eng = TokenEngine(arch, params, batch_size=2, max_len=24,
+                          device=d)
+        out[d] = eng.serve(reqs)
+        if d == "cuda":
+            n = kc.launches()
+            assert n[attn_ops.CROSS_COUNT] > 0 and n["decode_attention"] > 0
+    for r in reqs:
+        np.testing.assert_array_equal(out["cuda"][r.rid], out["cpu"][r.rid])
 
 
 @pytest.mark.parametrize("cfgs,corr", [([0, 3, 2, 3], False),

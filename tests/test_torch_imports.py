@@ -37,7 +37,10 @@ SLICE_MODULES = [
     "repro_torch.core.likelihood", "repro_torch.sde.general",
     "repro_torch.serve.traffic", "repro_torch.serve.scheduler",
     "repro_torch.serve.parking", "repro_torch.serve.router",
-    "repro_torch.models.quantize",
+    "repro_torch.models.quantize", "repro_torch.models.zoo",
+    "repro_torch.configs.whisper_base",
+    "repro_torch.configs.qwen3_moe_30b_a3b",
+    "repro_torch.configs.llama4_maverick_400b_a17b",
 ]
 
 

@@ -108,7 +108,9 @@ def weights(name, seed=3, **cfg_kw):
 
 
 def port_params(tarch, tree, grad=False):
-    params = convert.from_jax_transformer(tree, tarch.cfg)
+    conv = (convert.from_jax_encdec if tarch.spec.family == "encdec"
+            else convert.from_jax_transformer)
+    params = conv(tree, tarch.cfg)
     for t in param_list(params):
         t.requires_grad_(grad)
     return params
@@ -472,21 +474,29 @@ def test_port_checkpoint_restores_in_jax():
 @pytest.mark.parametrize("name", ARCH_IDS)
 def test_serve_step_matches_jax(name):
     """Four greedy steps from empty caches, the rows at their own
-    positions (0 and 3), through both packages' `make_serve_step`: equal
-    next tokens, logits within 1e-5 of max |logits|."""
+    positions (0 and 3), through both packages' `make_serve_step` (an
+    encdec arch's with one numpy memory): equal next tokens, logits within
+    1e-5 of max |logits|."""
     jarch, tarch, tree = weights(name)
     jstep = jax.jit(jsteps.make_serve_step(jarch))
     tstep = tsteps.make_serve_step(tarch)
     params = port_params(tarch, tree)
     jp = jax.tree.map(jnp.asarray, tree)
     jc, tc = jarch.init_cache(2, 8), tarch.init_cache(2, 8, device="cpu")
+    mem = None
+    if tarch.spec.family == "encdec":
+        mem = np.random.default_rng(0).standard_normal(
+            (2, tarch.spec.frontend_ctx, tarch.cfg.d_model)).astype(
+                np.float32)
+    jmem, tmem = ((None, None) if mem is None
+                  else (jnp.asarray(mem), torch.from_numpy(mem)))
     tok = np.array([[5], [9]], np.int32)
     pos = np.array([0, 3], np.int32)
     jt, tt = tok, tok
     for _ in range(4):
-        jt, jl, jc = jstep(jp, jnp.asarray(jt), jc, jnp.asarray(pos))
+        jt, jl, jc = jstep(jp, jnp.asarray(jt), jc, jnp.asarray(pos), jmem)
         tt, tl, tc = tstep(params, torch.from_numpy(np.asarray(tt)), tc,
-                           torch.from_numpy(pos))
+                           torch.from_numpy(pos), tmem)
         assert tt.dtype == torch.int32 and tt.shape == (2, 1)
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         assert max_rel(tl, jl) <= 1e-5
