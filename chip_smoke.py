@@ -131,8 +131,30 @@ MoE layer with its shared expert) a wave of 4 and 8 decode rounds, the
 launches as the CPU schedule predicts; one MoE layer of each, card
 (bf16) against the CPU (f32), with identical expert ids and drops; the
 reduced MoE configs card vs CPU; then `train_lm` on qwen3-moe at 2
-layers, batch 4 x 256, 10 steps, its loss falling.  Each depth cut is
-printed as `reduced` with its reason.  It prints:
+layers, batch 4 x 256, 10 steps, its loss falling.  Then phase 11, the
+recurrent-state families: `[rwkv]` serves full-width rwkv6-7b (32
+layers, d_model 4096, 64 heads of 64, bf16) and `[zamba]` full-width
+zamba2-2.7b (54 Mamba2 layers, d_model 2560, the shared block's 32 heads
+of 80 after every 6 layers, bf16) on a batch-4 TokenEngine with
+gemma3-1b's request list (8 requests, prompts of 96 and 640, 48 new,
+caches of 1024): the waves and rounds equal the reduced config's CPU
+schedule; rwkv launches no attention kernel, zamba one causal
+flash_attention a group a wave and one decode_attention a group a round
+(9 each); tokens/s after a warm-up; a `serve_stream` with a slot
+preempted (its recurrent state parked and restored) equal to each
+request served alone, bitwise; zamba's model with the kernels against
+the plain attention, and both head-width-80 forms held against their
+plain versions and timed beside SDPA, with decode_attention's cluster
+sweep.  `[rz-train]`: the causal gradient at (4, 1024, 32, 80) within 2
+bf16 ulp of autograd through the plain version, then `train_lm` on
+zamba2-2.7b at 36 of 54 layers (batch 4 x 1024, 10 steps, 12
+flash_attention launches a step) and on rwkv6-7b at 6 of 32 layers
+(batch 4 x 256, 10 steps, no attention launch), the last step of each
+traced, each loss falling (the depths that fit the AdamW update's ~32
+bytes a param on one card); the
+reduced configs of both card vs CPU (logits within 1e-4, equal token
+streams).  Each depth cut is printed as `reduced` with its reason.  It
+prints:
 
     <card name>, <power limit>                       (nvidia-smi)
     {"kernels": [...]}                               per-kernel record
@@ -1556,13 +1578,20 @@ def decode_cluster_sweep(q, k, v, cl, window):
     return sweep
 
 
+def lm_kernel(Dh: int) -> str:
+    """The name of the general form's bf16 kernel at head width Dh: the
+    mma.sync tile at 16, 32 and 80, the wgmma one at 64, 128 and 256."""
+    return f"flash_lm_{'mma' if Dh in (16, 32, 80) else 'wgmma'}_kernel<{Dh}"
+
+
 def lm_records(cfg, counts, gen, dev, *, path=LM_ARCH, prompts=LM_LENS,
-               max_len=LM_MAX_LEN, windows=(512, None), tag=None):
+               max_len=LM_MAX_LEN, windows=(512, None), tag=None, wave=1):
     """decode_attention and the causal flash_attention at a token path's
-    shapes (bf16; `cfg`'s heads, each window of `windows`), each against
-    its plain version (at most 2 bf16 ulp; f32 inputs within 1e-5 / 2e-5)
-    and timed beside it, its bound and SDPA with the same boolean mask.
-    The records of another arch than gemma3-1b carry its name as `tag`."""
+    shapes (bf16; `cfg`'s heads, each window of `windows`; the prefill of
+    a `wave` of the longer prompt), each against its plain version (at
+    most 2 bf16 ulp; f32 inputs within 1e-5 / 2e-5) and timed beside it,
+    its bound and SDPA with the same boolean mask.  The records of another
+    arch than gemma3-1b carry its name as `tag`."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import attention_ref
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -1628,10 +1657,11 @@ def lm_records(cfg, counts, gen, dev, *, path=LM_ARCH, prompts=LM_LENS,
         rec.update(cluster_sweep_ms=sweep)
         records.append(rec)
 
-    # prefill: the longer prompt into the cache (G = 1, as the alternating
-    # prompt lengths make every admission wave)
+    # prefill: `wave` rows of the longer prompt into the cache (the
+    # alternating prompt lengths make waves of one length)
     L = prompts[1]
-    q32, k32, v32 = rnd(1, L, Hq, Dh), rnd(1, S, Hkv, Dh), rnd(1, S, Hkv, Dh)
+    q32, k32, v32 = (rnd(wave, L, Hq, Dh), rnd(wave, S, Hkv, Dh),
+                     rnd(wave, S, Hkv, Dh))
     q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
     for window in windows:
         kw = dict(causal=True, window=window, q_offset=0)
@@ -1649,8 +1679,8 @@ def lm_records(cfg, counts, gen, dev, *, path=LM_ARCH, prompts=LM_LENS,
         pairs = causal_pairs(L, S, window)
         # q and o, and the keys/values up to the last query (the causal
         # mask hides the rest of the cache)
-        nbytes = 2 * (2 * q.numel() + 2 * L * Hkv * Dh)
-        ops = 4 * pairs * Hq * Dh
+        nbytes = 2 * (2 * q.numel() + 2 * wave * L * Hkv * Dh)
+        ops = 4 * wave * pairs * Hq * Dh
         qp = torch.arange(L, device=dev)[:, None]
         kp = torch.arange(S, device=dev)[None]
         keep = kp <= qp
@@ -1664,8 +1694,7 @@ def lm_records(cfg, counts, gen, dev, *, path=LM_ARCH, prompts=LM_LENS,
             path, "src/repro_torch/csrc/attention.cu",
             "src/repro/kernels/attention/kernel.py:109",
             counts.get("flash_attention", 0), max_err(got, want),
-            lambda: attn_ops.attention(q, k, v, **kw),
-            f"flash_lm_wgmma_kernel<{Dh}",
+            lambda: attn_ops.attention(q, k, v, **kw), lm_kernel(Dh),
             lambda: attention_ref(q, k, v, **kw), nbytes, ops, BF16_FLOPS,
             library_fn=lambda: sdpa(qh, kh, vh, attn_mask=keep)))
     return records
@@ -1711,24 +1740,26 @@ def lm_model_check(arch, params, dev, *, name=LM_ARCH, prompt=LM_LENS[1],
               f"{name}: {what} logits beyond tolerance")
 
 
-def reduced_lm_check():
-    """The reduced gemma3-1b (f32) with the same seeded weights on the card
-    (kernels) and on the CPU (plain versions): prefill and per-slot decode
-    logits within 1e-4 of max |logits|, and a TokenEngine serve (batch 3,
-    prompts of 20 and 9 tokens against the reduced window of 16) giving
-    equal token streams."""
+def reduced_lm_check(name: str = LM_ARCH, prompt: int = 20,
+                     max_len: int = 32):
+    """The reduced config of `name` (f32) with the same seeded weights on
+    the card (kernels) and on the CPU (plain versions): prefill and
+    per-slot decode logits within 1e-4 of max |logits|, and a TokenEngine
+    serve (batch 3, prompts of `prompt` and 9 tokens; gemma3-1b's 20
+    against its reduced window of 16) giving equal token streams."""
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import Arch
     from repro_torch.serve import TokenEngine
-    arch = Arch(get_arch(LM_ARCH, reduced=True))
-    toks = np.random.default_rng(4).integers(2, arch.cfg.vocab, size=(2, 20))
+    arch = Arch(get_arch(name, reduced=True))
+    toks = np.random.default_rng(4).integers(2, arch.cfg.vocab,
+                                             size=(2, prompt))
     logits, streams = {}, {}
     for d in ("cuda", "cpu"):
         eng = TokenEngine(arch, arch.init(seed=5, device="cpu"), batch_size=3,
-                          max_len=32, device=d)
+                          max_len=max_len, device=d)
         t = torch.from_numpy(toks).to(d)
-        lg, caches = arch.prefill(eng.params, {"tokens": t}, 32)
-        pos = torch.tensor([20, 14], dtype=torch.int32, device=d)
+        lg, caches = arch.prefill(eng.params, {"tokens": t}, max_len)
+        pos = torch.tensor([prompt, prompt - 6], dtype=torch.int32, device=d)
         out = [lg]
         for _ in range(3):
             lg, caches = arch.decode(eng.params, torch.argmax(
@@ -1737,17 +1768,17 @@ def reduced_lm_check():
             pos = pos + 1
         logits[d] = [x.float().cpu() for x in out]
         streams[d] = eng.serve(lm_requests(arch.cfg.vocab, 50, n=7,
-                                           lens=(20, 9), max_new=8))
+                                           lens=(prompt, 9), max_new=8))
     rel = max(float((a - b).abs().max() / b.abs().max())
               for a, b in zip(logits["cuda"], logits["cpu"]))
     same = all(np.array_equal(streams["cuda"][r], streams["cpu"][r])
                for r in streams["cpu"])
-    log(f"reduced {LM_ARCH}, card (kernels) vs CPU (plain): logits max abs "
+    log(f"reduced {name}, card (kernels) vs CPU (plain): logits max abs "
         f"err / max|logits| = {rel:.3e} (tol 1e-4); token streams of "
         f"{len(streams['cpu'])} requests equal: {same}")
-    check(rel <= 1e-4, f"reduced {LM_ARCH}: logits on the card disagree")
+    check(rel <= 1e-4, f"reduced {name}: logits on the card disagree")
     check(same and sorted(streams["cuda"]) == list(range(7)),
-          f"reduced {LM_ARCH}: token streams on the card differ from the CPU")
+          f"reduced {name}: token streams on the card differ from the CPU")
 
 
 # ---- train + likelihood: the diffusion training path at full width -----------
@@ -2745,7 +2776,7 @@ def lm_train_record(name, path, q, k, v, window, launches, err, times,
         name, path, "src/repro_torch/csrc/attention.cu",
         "src/repro/kernels/attention/kernel.py:109", launches, err,
         lambda: attn_ops.flash_attention_causal(q, k, v, window=window),
-        f"flash_lm_wgmma_kernel<{Dh}",
+        lm_kernel(Dh),
         lambda: attention_ref(q, k, v, causal=True, window=window),
         2 * (2 * q.numel() + 2 * k.numel()),        # q, k, v read; o written
         4 * B * causal_pairs(S, S, window) * Hq * Dh, BF16_FLOPS,
@@ -3304,25 +3335,29 @@ def whisper_records(cfg, counts, gen, dev):
     return records
 
 
-def whisper_stream(engine, card: str) -> None:
-    """`serve_stream` of W_STREAM on the whisper engine: the urgent
-    arrival preempts a running slot (its cache rows, state row and memory
-    row parked on the host, then restored); every request's tokens must
-    equal the request served alone, bitwise."""
+def token_stream(engine, what: str, card: str, stream, seed: int) -> None:
+    """`serve_stream` of `stream` ((arrival round, prompt length, max_new,
+    request keywords)) on a TokenEngine, an encdec arch's requests with
+    frames drawn before each prompt: the urgent arrival preempts a
+    running slot (its cache rows, state row and memory row parked on the
+    host, then restored); every request's tokens must equal the request
+    served alone, bitwise."""
     from repro_torch.kernels import cuda as kc
     from repro_torch.serve import Arrival, ServeRequest, TraceTraffic
     spec = engine.arch.spec
-    rng = np.random.default_rng(78)
+    rng = np.random.default_rng(seed)
     reqs = []
-    for i, (_, L, m, kw) in enumerate(W_STREAM):
-        frames = rng.standard_normal(
-            (spec.frontend_ctx, spec.cfg.d_model)).astype(np.float32)
+    for i, (_, L, m, kw) in enumerate(stream):
+        frames = None
+        if spec.family == "encdec":
+            frames = rng.standard_normal(
+                (spec.frontend_ctx, spec.cfg.d_model)).astype(np.float32)
         reqs.append(ServeRequest(
             rid=i, workload="token", seed=i, max_new=m, frames=frames,
             tokens=rng.integers(2, spec.cfg.vocab, size=L).astype(np.int32),
             **kw))
     trace = TraceTraffic([Arrival(t, r) for (t, *_), r in
-                          zip(W_STREAM, reqs)])
+                          zip(stream, reqs)])
     p0, r0 = engine.n_preemptions, engine.n_resumes
     kc.reset_launches()
     t0 = time.perf_counter()
@@ -3331,16 +3366,16 @@ def whisper_stream(engine, card: str) -> None:
     dt = time.perf_counter() - t0
     n_tok = sum(len(v) for v in toks.values())
     pre, res = engine.n_preemptions - p0, engine.n_resumes - r0
-    log(f"[whisper] stream: {len(toks)} requests, {n_tok} tokens in "
+    log(f"[{what}] stream: {len(toks)} requests, {n_tok} tokens in "
         f"{dt:.4f}s ({n_tok / dt:.3f} tokens/s, {card}); preemptions {pre} "
         f"{engine.preemption_log}, resumes {res}; launches {kc.launches()}")
     check(pre >= 1 and res == pre and len(engine.parking) == 0,
-          "[whisper] stream: no preemption, or rows left parked")
+          f"[{what}] stream: no preemption, or rows left parked")
     same = sum(bool(np.array_equal(toks[r.rid], engine.serve([r])[r.rid]))
                for r in reqs)
-    log(f"[whisper] stream (a whisper slot preempted and resumed) == served "
+    log(f"[{what}] stream (a {what} slot preempted and resumed) == served "
         f"alone: {same} of {len(reqs)} bitwise")
-    check(same == len(reqs), "[whisper] a streamed request differs from "
+    check(same == len(reqs), f"[{what}] a streamed request differs from "
           "the request served alone")
 
 
@@ -3385,7 +3420,7 @@ def whisper_serve(dev, card, gen):
         attn_ops.CROSS_COUNT: Ld * waves + Ld * rounds,
         attn_ops.F32_COUNT: Ld * rounds,
         "decode_attention": Ld * rounds})
-    whisper_stream(engine, card)
+    token_stream(engine, "whisper", card, W_STREAM, 78)
     encdec_model_check(arch, params, dev)
     del engine, params
     free_card()
@@ -3453,16 +3488,17 @@ def cross_grad_check(shape, sk, gen, dev):
 
 
 def train_counted(name: str, spec, steps: int, batch: int, seq: int,
-                  want_step: dict, card: str):
+                  want_step: dict, card: str, trace: Path | None = None):
     """`launch.train.train_lm` on `spec` (full width, bf16, remat on) for
-    `steps` steps at batch x seq tokens, each step timed by `on_step`:
-    finite losses that fall (mean of the last 3 below the first 3), the
-    launches `want_step` a step.  Returns (losses, launches, peak GiB,
-    median step ms)."""
+    `steps` steps at batch x seq tokens, each step timed by `on_step`
+    (the last one traced, its kernels into `trace`, where given): finite
+    losses that fall (mean of the last 3 below the first 3), the launches
+    `want_step` a step.  Returns (losses, launches, peak GiB, median step
+    ms)."""
     from repro_torch.kernels import cuda as kc
     from repro_torch.launch.train import train_lm
     from repro_torch.models.transformer import param_list
-    watch = StepClock()
+    watch = StepClock(traced=steps if trace else None)
     free_card()
     torch.cuda.reset_peak_memory_stats()
     kc.reset_launches()
@@ -3489,6 +3525,12 @@ def train_counted(name: str, spec, steps: int, batch: int, seq: int,
           f"[{name}] train_lm: the loss did not fall")
     check_counts(f"{name} train", counts,
                  {k: n * steps for k, n in want_step.items()})
+    if trace:
+        wall, busy, n_events = watch.traced_step(trace)
+        log(f"[{name}] one traced step: wall {1e3 * wall:.3f} ms, device "
+            f"busy {1e3 * busy:.3f} ms ({100 * busy / wall:.1f}% busy), "
+            f"{n_events} device events; kernels by device time in "
+            f"chiprun_out/{trace.name} ({card})")
     return losses, counts, peak, med
 
 
@@ -3686,6 +3728,184 @@ def encdec_moe_phase(dev, card, gen):
     return records
 
 
+# ---- rwkv / zamba: the recurrent-state families -------------------------------
+RWKV, ZAMBA = "rwkv6-7b", "zamba2-2.7b"
+RZ_TAGS = {RWKV: "rwkv", ZAMBA: "zamba"}
+# both served with gemma3-1b's list: N_REQUESTS at batch BATCH, prompts of
+# LM_LENS by turns, LM_MAX_NEW new, caches of LM_MAX_LEN; their streams
+# W_STREAM (distinct short prompts; the fifth, urgent, preempts)
+# trained at the depth that fits one card: the AdamW update holds ~32
+# bytes a param at its peak (bf16 params and grads; f32 m, v, masters; its
+# f32 temporaries of the grads, the moments' quotients and the decay)
+RZ_TRAIN_STEPS = 10
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ = 36, 4, 1024
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 6, 4, 256
+TRAIN_WHY = ("one card: the AdamW update holds ~32 bytes a param at its "
+             "peak (bf16 params and grads; f32 m, v, masters and the "
+             "update's f32 temporaries): {full:.0f} GB at {n} layers, "
+             "{cut:.0f} GB at {k}")
+
+
+def round_trace(engine, tag: str, card: str, rounds: int = 5) -> None:
+    """What a decode round costs the host: `rounds` round steps on the
+    engine's state after a serve (every slot retired: the rows' writes
+    are row-local garbage that the next admission overwrites) under a
+    CUPTI trace; device events a round (a lower bound: CUPTI may drop a
+    trace's first events), device busy against wall; the kernels by
+    device time into chiprun_out/round_profile_<tag>.txt."""
+    args = (engine.params, engine.state, engine.caches, engine.eos_id)
+    engine._decode(*args, memory=engine.memory)             # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            engine._decode(*args, memory=engine.memory)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = kernel_events(prof)
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    log(f"[{tag}] {rounds} traced decode rounds: {len(events) / rounds:.1f} "
+        f"device events a round, wall {1e3 * wall / rounds:.3f} ms a round, "
+        f"device busy {1e3 * busy / rounds:.3f} ms ({100 * busy / wall:.1f}% "
+        f"busy) ({card})")
+    (ROOT / "chiprun_out" / f"round_profile_{tag}.txt").write_text("".join(
+        f"{us:.1f}\t{k}\n" for k, us in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1])))
+
+
+def recurrent_serve(name: str, dev, card, gen):
+    """`name` at full width and depth on a batch-BATCH TokenEngine (bf16):
+    gemma3-1b's request list, the waves and rounds of the reduced config's
+    CPU schedule, the attention launches (rwkv none; zamba one causal
+    flash_attention a group a wave, one decode_attention a group a
+    round), tokens/s after a warm-up, the stream with a preemption; for
+    zamba the model with the kernels against the plain attention and the
+    head-width-80 records.  Returns (records, tokens/s)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models.registry import Arch
+    from repro_torch.models.transformer import param_list
+    from repro_torch.serve import TokenEngine
+    free_card()
+    tag = RZ_TAGS[name]
+    t0 = time.perf_counter()
+    spec = get_arch(name)
+    arch, cfg = Arch(spec), spec.cfg
+    params = arch.init(seed=SEED, device=dev)
+    engine = TokenEngine(arch, params, batch_size=BATCH, max_len=LM_MAX_LEN,
+                         eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in param_list(params))
+    state = sum(t.numel() * t.element_size()
+                for t in param_list(engine.caches)) / GIB
+    log(f"[{tag}] {name}: {n_params} params drawn on the card "
+        f"(param_count() {cfg.param_count()}), {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; caches "
+        f"{state:.3f} GiB at batch {BATCH} x {LM_MAX_LEN}; "
+        f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated: "
+        f"{time.perf_counter() - t0:.2f}s; reduced: none")
+    waves_p, rounds_p = cpu_schedule(name, N_REQUESTS, LM_LENS, LM_MAX_NEW,
+                                     LM_MAX_LEN)
+    _, counts, waves, rounds, dt = serve_counted(
+        engine, token_requests(spec, SEED, N_REQUESTS, LM_LENS, LM_MAX_NEW),
+        token_requests(spec, 1000, BATCH, LM_LENS, 4), tag, card)
+    rate = N_REQUESTS * LM_MAX_NEW / dt
+    check((waves, rounds) == (waves_p, rounds_p),
+          f"[{tag}] {waves} waves and {rounds} rounds, the CPU schedule "
+          f"{waves_p} and {rounds_p}")
+    G = getattr(cfg, "n_groups", 0)
+    check_counts(tag, counts, {
+        "flash_attention": G * waves, attn_ops.GLOBAL_COUNT: G * waves,
+        "decode_attention": G * rounds})
+    widths = list(engine.prefill_widths)[-waves:]
+    round_trace(engine, tag, card)
+    token_stream(engine, tag, card, W_STREAM, 79)
+    records = []
+    if G:
+        lm_model_check(arch, params, dev, name=tag)
+        log(f"[{tag}] admission wave widths {widths}; records at the widest")
+        del engine, params
+        free_card()
+        records = lm_records(cfg, counts, gen, dev, path=f"TokenEngine {name}",
+                             windows=(None,), tag=name, wave=max(widths))
+    else:
+        del engine, params
+    free_card()
+    return records, rate
+
+
+def train_depth(name: str, spec, layers: int):
+    """`spec` cut to `layers` (printed as `reduced`, with its reason)."""
+    full = spec.cfg.param_count() * 32 / 1e9
+    cut = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, n_layers=layers))
+    log(f"[rz-train] reduced: {name} trained at {layers} of "
+        f"{spec.cfg.n_layers} layers (" + TRAIN_WHY.format(
+            full=full, n=spec.cfg.n_layers,
+            cut=cut.cfg.param_count() * 32 / 1e9, k=layers)
+        + "); widths, heads and vocab as published")
+    return cut
+
+
+def recurrent_train(dev, card, gen):
+    """The causal gradient at zamba2-2.7b's training shape (4, 1024, 32,
+    80) within 2 bf16 ulp of autograd through the plain version, then
+    `train_lm` on zamba2-2.7b at ZAMBA_TRAIN_LAYERS layers (batch 4 x
+    1024: 2 flash_attention launches a group a step, the forward and the
+    remat recompute) and on rwkv6-7b at RWKV_TRAIN_LAYERS (batch 4 x 256:
+    no attention launch), the last step of each traced, each loss
+    falling.  Returns the training record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    spec = get_arch(ZAMBA)
+    cfg = spec.cfg
+    shape = (ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, cfg.n_heads, cfg.d_head)
+    q, k, v, err, times, kw = lm_grad_check(shape, cfg.n_kv_heads, None, gen,
+                                            dev)
+    spec = train_depth(ZAMBA, spec, ZAMBA_TRAIN_LAYERS)
+    G = spec.cfg.n_groups
+    _, counts, peak, med = train_counted(
+        ZAMBA, spec, RZ_TRAIN_STEPS, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ,
+        {"flash_attention": 2 * G, attn_ops.GLOBAL_COUNT: 2 * G}, card,
+        trace=ROOT / "chiprun_out" / "train_zamba_profile.txt")
+    rec = lm_train_record(
+        f"flash_attention[train,{ZAMBA}]",
+        f"train_lm {ZAMBA} ({ZAMBA_TRAIN_LAYERS} layers), batch "
+        f"{ZAMBA_TRAIN_BATCH} x {ZAMBA_TRAIN_SEQ}",
+        q, k, v, None, counts.get("flash_attention", 0), err, times, kw)
+    rec.update(step_ms=med, peak_gib=peak)
+    del q, k, v
+    rspec = train_depth(RWKV, get_arch(RWKV), RWKV_TRAIN_LAYERS)
+    train_counted(RWKV, rspec, RZ_TRAIN_STEPS, RWKV_TRAIN_BATCH,
+                  RWKV_TRAIN_SEQ, {"flash_attention": 0}, card,
+                  trace=ROOT / "chiprun_out" / "train_rwkv_profile.txt")
+    return rec
+
+
+def recurrent_phase(dev, card, gen):
+    """Phase 11: `[rwkv]` and `[zamba]` served, `[rz-train]`, the reduced
+    configs card vs CPU.  Returns the kernels-line records."""
+    t_phase = time.perf_counter()
+    _, rwkv_rate = recurrent_serve(RWKV, dev, card, gen)
+    log(f"[rwkv] phase {time.perf_counter() - t_phase:.2f}s")
+    t0 = time.perf_counter()
+    records, zamba_rate = recurrent_serve(ZAMBA, dev, card, gen)
+    log(f"[zamba] phase {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    records.append(recurrent_train(dev, card, gen))
+    for name in (RWKV, ZAMBA):                   # prefill over 2 chunks
+        reduced_lm_check(name, prompt=40, max_len=64)
+    log(f"[rz-train] phase {time.perf_counter() - t0:.2f}s")
+    log(f"[rwkv/zamba] phase 11: {time.perf_counter() - t_phase:.2f}s; "
+        f"served {rwkv_rate:.1f} ({RWKV}) and {zamba_rate:.1f} ({ZAMBA}) "
+        f"tokens/s ({card})")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3827,6 +4047,9 @@ def main() -> int:
     # ---- 10. whisper, whisper-train, moe: the encoder-decoder and the MoE
     # transformers, each phase's weights freed before the next -------------
     records += encdec_moe_phase(dev, card, gen)
+
+    # ---- 11. rwkv, zamba, rz-train: the recurrent-state families --------
+    records += recurrent_phase(dev, card, gen)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(smi())

@@ -1,18 +1,21 @@
-"""Model and paper configs: `get_arch(name, reduced=False)` for the token
-archs ported so far (the dense and MoE transformers and whisper-base's
-encoder-decoder, which the token engine serves and `launch.train.train_lm`
-trains), `get_diffusion(name, reduced=False)` for the paper's diffusion
-configs.  `ARCH_IDS` keeps the JAX package's order."""
+"""Model and paper configs: `get_arch(name, reduced=False)` for every token
+arch of the JAX package (the dense and MoE transformers, rwkv6-7b,
+zamba2-2.7b and whisper-base's encoder-decoder, which the token engine
+serves and `launch.train.train_lm` trains), `get_diffusion(name,
+reduced=False)` for the paper's diffusion configs.  `ARCH_IDS` keeps the
+JAX package's order."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
 ARCH_MODULES: Dict[str, str] = {
+    "zamba2-2.7b": "zamba2_2p7b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "llama3-405b": "llama3_405b",
     "gemma3-1b": "gemma3_1b",
     "nemotron-4-15b": "nemotron_4_15b",
+    "rwkv6-7b": "rwkv6_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "whisper-base": "whisper_base",

@@ -32,10 +32,15 @@ This is the only way the two packages compute the same net.
   * `from_jax_encdec(tree, cfg)` returns the encoder-decoder's params:
     the stacked `enc_layers` / `dec_layers` unstacked into lists of
     per-layer dicts, the rest as it is; `to_jax_encdec(params, cfg)` is
-    its inverse, as numpy arrays (`jax_encdec_tree` over tensors).
+    its inverse, as numpy arrays.  `from_jax_rwkv` / `to_jax_rwkv` and
+    `from_jax_zamba` / `to_jax_zamba` do the same with the one (L, ...)
+    `layers` stack (zamba's shared block stays one dict); all are
+    `from_jax_lm` / `to_jax_lm`, which pick the layout by `cfg`'s type
+    (the transformer's too), and `from_jax_cache(cache, cfg)` carries a
+    JAX serving cache of rwkv, zamba or encdec into the port's lists.
   * `lm_train_state_tree(params, opt_state, cfg)` is the (params,
-    AdamWState) tree of a transformer or an encoder-decoder (by `cfg`'s
-    type) and its optimizer state as the JAX `train_lm` checkpoints it,
+    AdamWState) tree of a token arch of any family (by `cfg`'s type) and
+    its optimizer state as the JAX `train_lm` checkpoints it,
     on the host; `load_lm_train_state` copies such a tree back in place.
     The optimizer state's lists follow `transformer.param_list`'s order.
 """
@@ -205,39 +210,40 @@ def to_jax_transformer(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     return _map(jax_transformer_tree(params, cfg), _to_numpy)
 
 
-_ENCDEC_STACKS = ("enc_layers", "dec_layers")
+def _stacks(cfg):
+    """(key, count) of each layer list of a family's params, one stack
+    along a leading axis in the JAX tree (the rest of the tree carries
+    over leaf by leaf: zamba's one shared block too); None for the
+    transformer, whose JAX layout groups layers by pattern position."""
+    from .models.zoo import EncDecCfg, RWKV6LMCfg, Zamba2Cfg
+    if isinstance(cfg, EncDecCfg):
+        return (("enc_layers", cfg.n_enc_layers),
+                ("dec_layers", cfg.n_dec_layers))
+    if isinstance(cfg, (RWKV6LMCfg, Zamba2Cfg)):
+        return (("layers", cfg.n_layers),)
+    return None
 
 
-def _is_encdec(cfg) -> bool:
-    return hasattr(cfg, "n_enc_layers")
-
-
-def _from_jax_encdec_layout(tree: Mapping[str, Any], cfg,
-                            leaf) -> Dict[str, Any]:
-    """A tree in the JAX encdec layout -> the port's, each leaf (a layer's
-    slice for a stacked one) passed through `leaf`."""
-    out = {k: _map(v, leaf) for k, v in tree.items()
-           if k not in _ENCDEC_STACKS}
-    for key, n in zip(_ENCDEC_STACKS, (cfg.n_enc_layers, cfg.n_dec_layers)):
+def _from_jax_stacked(tree: Mapping[str, Any], cfg, leaf) -> Dict[str, Any]:
+    """A tree in the JAX layout of a family with layer stacks -> the
+    port's, each leaf (a layer's slice for a stacked one) passed through
+    `leaf`."""
+    stacks = dict(_stacks(cfg))
+    out = {k: _map(v, leaf) for k, v in tree.items() if k not in stacks}
+    for key, n in stacks.items():
         out[key] = [_map(tree[key], lambda a, i=i: leaf(a[i]))
                     for i in range(n)]
     return out
 
 
-def from_jax_encdec(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
-    """JAX `encdec_init` tree (numpy leaves) -> the port's params."""
-    return _from_jax_encdec_layout(tree, cfg,
-                                   lambda a: _tensor(np.asarray(a)))
-
-
-def jax_encdec_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
-    """The port's encoder-decoder params (or a tree of that structure) ->
-    the JAX layout over the same tensors: each layer list stacked along a
-    new leading axis (new tensors)."""
-    tree = {k: v for k, v in params.items() if k not in _ENCDEC_STACKS}
+def _jax_stacked_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The port's params of a family with layer stacks (or a tree of that
+    structure) -> the JAX layout over the same tensors: each layer list
+    stacked along a new leading axis (new tensors)."""
+    stacks = dict(_stacks(cfg))
+    tree = {k: v for k, v in params.items() if k not in stacks}
     with torch.no_grad():
-        for key, n in zip(_ENCDEC_STACKS,
-                          (cfg.n_enc_layers, cfg.n_dec_layers)):
+        for key, n in stacks.items():
             if len(params[key]) != n:
                 raise ValueError(f"{len(params[key])} {key}, config says "
                                  f"{n}")
@@ -245,25 +251,63 @@ def jax_encdec_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     return tree
 
 
-def to_jax_encdec(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
-    """The port's encoder-decoder params -> the JAX `encdec_init` tree as
-    numpy arrays (bf16 as float32 of the same values)."""
-    return _map(jax_encdec_tree(params, cfg), _to_numpy)
+def from_jax_lm(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """A JAX token arch's param tree (numpy leaves) -> the port's params,
+    by `cfg`'s family: the transformer's layout (`from_jax_transformer`),
+    or each layer stack unstacked into a list of per-layer dicts."""
+    if _stacks(cfg) is None:
+        return from_jax_transformer(tree, cfg)
+    return _from_jax_stacked(tree, cfg, lambda a: _tensor(np.asarray(a)))
+
+
+def to_jax_lm(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The port's params of a token arch -> its JAX param tree as numpy
+    arrays (bf16 as float32 of the same values), the inverse of
+    `from_jax_lm`."""
+    return _map(_jax_lm_tree(params, cfg), _to_numpy)
+
+
+# each family's own name for the rule: whisper's enc_layers / dec_layers
+# stacks, rwkv's and zamba's one layers stack (zamba's Mamba2 layers in the
+# order the JAX forward regroups them, (G, share_every): layer g *
+# share_every + j; its shared block one dict)
+from_jax_encdec = from_jax_rwkv = from_jax_zamba = from_jax_lm
+to_jax_encdec = to_jax_rwkv = to_jax_zamba = to_jax_lm
+
+
+def from_jax_cache(cache: Any, cfg) -> Any:
+    """A JAX serving cache (numpy leaves, layers stacked) -> the port's,
+    for the rwkv, zamba and encdec families: rwkv's (x_prev_t, S,
+    x_prev_c), each (L, B, ...), -> a list of L tuples; zamba's ((conv,
+    ssm), (k, v)), (L, B, ...) and (G, B, ...), -> (a list of L (conv,
+    ssm), a list of G (k, v)); encdec's (k, v), (L, B, ...), -> a list
+    of L pairs."""
+    from .models.zoo import EncDecCfg, RWKV6LMCfg, Zamba2Cfg
+    t = lambda a: _tensor(np.asarray(a))
+    unstack = lambda leaves: [tuple(t(a[i]) for a in leaves)
+                              for i in range(np.asarray(leaves[0]).shape[0])]
+    if isinstance(cfg, (RWKV6LMCfg, EncDecCfg)):
+        return unstack(list(cache))
+    if isinstance(cfg, Zamba2Cfg):
+        return unstack(list(cache[0])), unstack(list(cache[1]))
+    raise ValueError(f"no cache conversion for {type(cfg).__name__}")
 
 
 def _jax_lm_tree(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
-    return (jax_encdec_tree if _is_encdec(cfg)
-            else jax_transformer_tree)(params, cfg)
+    if _stacks(cfg) is None:
+        return jax_transformer_tree(params, cfg)
+    return _jax_stacked_tree(params, cfg)
 
 
 def _from_jax_lm_layout(tree: Mapping[str, Any], cfg, leaf) -> Dict[str, Any]:
-    return (_from_jax_encdec_layout if _is_encdec(cfg)
-            else _from_jax_layout)(tree, cfg, leaf)
+    if _stacks(cfg) is None:
+        return _from_jax_layout(tree, cfg, leaf)
+    return _from_jax_stacked(tree, cfg, leaf)
 
 
 def lm_train_state_tree(params: Mapping[str, Any], opt_state, cfg) -> tuple:
-    """(params, AdamWState(step, m, v, master)) in the JAX transformer or
-    encdec layout: the tree the JAX `train_lm` checkpoints, on the host.  Each
+    """(params, AdamWState(step, m, v, master)) in the JAX layout of
+    `cfg`'s family: the tree the JAX `train_lm` checkpoints, on the host.  Each
     leaf is copied to the host before the layers are stacked, so neither a
     save nor a resume's template takes device memory, and a restore into
     this tree's structure lands on the host too.  `opt_state` is the

@@ -11,7 +11,7 @@
 //     optional sliding window (keep k_pos > q_pos - window), GQA (query
 //     head h reads KV head h / rep, as the TPU kernel's BlockSpec index
 //     map does; the repeat is never materialized), Sq != Sk, q_offset as
-//     an int or a device scalar, head width 16/32/64/128/256.  Causality
+//     an int or a device scalar, head width 16/32/64/80/128/256.  Causality
 //     is a template flag of each tile: the non-causal instances drop the
 //     diagonal from the band and the mask, and keep the key tail's mask
 //     (k_pos < Sk) on the last tile, which a ragged Sk (1500 = 23 * 64 +
@@ -21,7 +21,9 @@
 // flash_dit_wgmma_kernel and flash_lm_wgmma_kernel (one warpgroup tile
 // core) at head width 64/128/256, flash_dit_mma_kernel and
 // flash_lm_mma_kernel (mma.sync) at 16/32, whose rows are narrower than a
-// 128-byte swizzled tile.  f32 inputs (reduced configs, tests) run the
+// 128-byte swizzled tile, and at 80 (zamba2-2.7b's shared block), whose
+// 160-byte rows fit no 128-byte swizzle atom.  f32 inputs (reduced
+// configs, tests) run the
 // CUDA-core kernels of the first port, flash_fwd_kernel and
 // flash_lm_kernel, described at the end.
 //
@@ -240,8 +242,11 @@ flash_lm_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int Sk, int Hq, int Hkv, int window, float scale) {
   constexpr int PAD = lm_pad<DH>();
   constexpr int NK = kLBK / kLTPR;             // keys scored per thread
-  constexpr int VW = DH >= 32 ? 4 : 2;         // output columns per read
+  // output columns per read: 4 where the 8 lanes of a row tile DH by 32,
+  // else 2 (16; 80 = 5 chunks of 8 x 2)
+  constexpr int VW = DH % 32 == 0 ? 4 : 2;
   constexpr int NCH = DH / (kLTPR * VW);       // column chunks per thread
+  static_assert(DH % (kLTPR * VW) == 0, "the row's lanes tile DH");
   extern __shared__ float sm[];
   float* Qs = sm;                              // (BQ, PAD)
   float* Ks = Qs + kLBQ * PAD;                 // (BK, PAD)
@@ -392,6 +397,7 @@ int launch_lm_dh(const void* q, const void* k, const void* v, void* o,
     REPRO_LM(16)
     REPRO_LM(32)
     REPRO_LM(64)
+    REPRO_LM(80)
     REPRO_LM(128)
     REPRO_LM(256)
     default: return (int)cudaErrorInvalidValue;
@@ -411,10 +417,20 @@ int launch_lm_form(const void* q, const void* k, const void* v, void* o,
                                         Sk, Hq, Hkv, Dh, 0, scale, s);
 }
 
-// ---- d_head 16 / 32 on the tensor cores (mma.sync) ----------------------
+// ---- d_head 16 / 32 / 80 on the tensor cores (mma.sync) -----------------
 //
-// Rows of 32 or 64 bytes, narrower than wgmma's 128-byte-swizzled tiles:
-// each warp owns 16 query rows and issues its own m16n8k16 products.
+// Rows of 32 or 64 bytes, narrower than wgmma's 128-byte-swizzled tiles,
+// or of 160 bytes (d_head 80), which fit no 128-byte swizzle atom: each
+// warp owns 16 query rows and issues its own m16n8k16 products.  At 80,
+// Q K^T is 5 k-steps of 16 and P V 10 n-tiles of 8, 40 f32 accumulators a
+// thread for O; the rows lie 176 bytes apart in shared memory (16 bytes
+// of padding), so the 8 rows an ldmatrix reads start in 8 different
+// 16-byte bank groups; the Q tile and the two stages of K and V take 55
+// KB, above the 48 KB a launch gets without the opt-in.  The 32-byte
+// swizzle a wgmma tile of 160-byte rows could use was not taken: this
+// tile is the one that already serves 16 and 32, and the shapes it runs
+// at (zamba2's prefill, L <= 640 queries over their own keys) move a few
+// MB, bound by bytes, not by the tensor cores' rate.
 
 using bf16 = __nv_bfloat16;
 
@@ -1015,7 +1031,7 @@ int launch_lm_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// d_head 16 / 32: under 48 KB of shared memory, no opt-in
+// the DiT form's d_head 32: under 48 KB of shared memory, no opt-in
 static_assert(mma_smem<32>() <= 48 * 1024, "mma.sync tiles fit 48 KB");
 
 template <int DH>
@@ -1032,6 +1048,12 @@ template <int DH, bool CAUSAL, bool WINDOW>
 int launch_lm_mma(const void* q, const void* k, const void* v, void* o,
                   const int* q_off_ptr, int q_off, int B, int Sq, int Sk,
                   int Hq, int Hkv, int window, float scale, cudaStream_t s) {
+  if (mma_smem<DH>() > 48 * 1024) {          // d_head 80: the opt-in, once
+    static bool opted_in = false;
+    const cudaError_t e = opt_in(flash_lm_mma_kernel<DH, CAUSAL, WINDOW>,
+                                 mma_smem<DH>(), opted_in);
+    if (e != cudaSuccess) return (int)e;
+  }
   const dim3 grid((Sq + kMBQ - 1) / kMBQ, Hq, B);
   flash_lm_mma_kernel<DH, CAUSAL, WINDOW><<<grid, kMThreads, mma_smem<DH>(),
                                             s>>>(
@@ -1059,6 +1081,7 @@ int launch_lm_mma_dh(const void* q, const void* k, const void* v, void* o,
     REPRO_LM_MMA(16)
     REPRO_LM_MMA(32)
     REPRO_LM_WGMMA(64)
+    REPRO_LM_MMA(80)
     REPRO_LM_WGMMA(128)
     REPRO_LM_WGMMA(256)
     default: return (int)cudaErrorInvalidValue;

@@ -17,7 +17,9 @@
 // most ~1.4 MB, a fraction of a microsecond of traffic: what sets its time
 // is how many SMs share the work, how soon their loads are in flight, how
 // many instructions each SM issues, how many barriers the merges cross,
-// and how many launches a call takes.
+// and how many launches a call takes.  zamba2-2.7b's shared block (B = 4,
+// Hkv = 32, rep = 1, Dh = 80, bf16) reads 32 heads of K/V: at cache_len
+// 640 some 26 MB a call (7.8 us at 3.35 TB/s), where the bytes bound.
 //
 // Design.  The TPU walks the cache's blocks one after another on one core
 // and carries (m, l, acc) in VMEM.  Here one thread-block cluster of nb
@@ -84,7 +86,11 @@ __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // Per (Dh, dtype): warps, keys a warp takes per step, copy stages, shared
 // memory.  The f32 lane layout: lane (kslot, c0) holds 16-byte chunks c0,
-// c0 + LPK, ... of the U keys of key slot kslot, for both products.
+// c0 + LPK, ... of the U keys of key slot kslot, for both products.  LPK,
+// the lanes of a key, is the largest power of two that divides the NG
+// chunks of a row, at most 32: the group reduce is a butterfly, and every
+// lane of a warp has a key slot.  At Dh 16-256 that is min(NG, 32); at Dh
+// 80 (NG 20) it is 4, so a warp holds 8 key slots of 5 chunks a lane.
 template <int DH, typename T>
 struct Cfg {
   static constexpr bool MMA = std::is_same<T, bf16>::value;
@@ -93,7 +99,7 @@ struct Cfg {
   static constexpr int NG = DH / VEC;                  // chunks per row
   static constexpr int NW = MMA ? 4 : 8;               // warps per block
   static constexpr int NT = 32 * NW;
-  static constexpr int LPK = cmin(NG, 32);             // lanes per key (f32)
+  static constexpr int LPK = cmin(NG & -NG, 32);       // lanes per key (f32)
   static constexpr int KPW = 32 / LPK;                 // key slots per warp
   static constexpr int CPL = NG / LPK;                 // chunks per lane
   static constexpr int STAGES = ROW <= 256 ? 2 : 1;    // copy stages a warp
@@ -123,6 +129,7 @@ struct Cfg {
                                + NW * (kMaxBlocks * kRows + kRows);
   static constexpr size_t SMEM = BIG + sizeof(float) * SMALL;
   static_assert(NW * kRows <= 32, "the block merge takes a lane per (warp, row)");
+  static_assert(NG % LPK == 0 && 32 % LPK == 0, "key slots tile the warp");
 };
 
 // one 16-byte chunk as f32
@@ -560,7 +567,8 @@ struct FmaWarp {
 };
 
 // grid (nb, Hkv * ceil(rep / kRows), B), cluster (nb, 1, 1), Cfg::NW
-// warps; nb divides 16 and so DH.
+// warps; nb divides 16 and so kRows * DH (4 * 80 = 320 = 16 * 20: every
+// block finishes a multiple of 4 elements, as the float4 pushes need).
 template <int DH, typename T>
 __global__ void __launch_bounds__(Cfg<DH, T>::NT)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -776,6 +784,7 @@ int launch_dh(const void* q, const void* k, const void* v, const int* cl,
     REPRO_DH_CASE(16)
     REPRO_DH_CASE(32)
     REPRO_DH_CASE(64)
+    REPRO_DH_CASE(80)
     REPRO_DH_CASE(128)
     REPRO_DH_CASE(256)
 #undef REPRO_DH_CASE

@@ -10,12 +10,14 @@ of either form also as `flash_attention:f32`):
   * the general form — causal (LM prefill) or not (cross-attention: the
     encoder-decoder's decoder queries over the encoder memory), an
     optional window, GQA (Hkv dividing Hq), Sq != Sk, q_offset an int or
-    a device scalar, head width 16, 32, 64, 128 or 256.  A non-causal
-    call outside the DiT form runs it.
+    a device scalar, head width 16, 32, 64, 80, 128 or 256.  A
+    non-causal call outside the DiT form runs it.
 
 Both take bf16, which runs on the tensor cores (`flash_dit_wgmma_kernel`
 and `flash_lm_wgmma_kernel` at head width 64, 128 or 256;
-`flash_dit_mma_kernel` and `flash_lm_mma_kernel`, mma.sync, at 16 or 32),
+`flash_dit_mma_kernel` and `flash_lm_mma_kernel`, mma.sync, at 16 or 32,
+and `flash_lm_mma_kernel` at 80: zamba2-2.7b's shared block, never padded
+to 128),
 and f32, which runs on the CUDA cores (`flash_fwd_kernel`,
 `flash_lm_kernel`).  q, k and v of different dtypes are promoted to a
 common one and the output cast back to q's, as the plain version (and the
@@ -51,7 +53,7 @@ Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_WIDTHS = (32, 64, 128)
-LM_HEAD_WIDTHS = (16, 32, 64, 128, 256)
+LM_HEAD_WIDTHS = (16, 32, 64, 80, 128, 256)
 # the causal form's launches are also counted by instance: with a window
 # (the band skip) or without
 WINDOW_COUNT, GLOBAL_COUNT = ("flash_attention:window",

@@ -12,7 +12,8 @@ size depends on S alone (`cluster_blocks`), so the grid never depends on
 `cache_len`.
 
 The kernel takes q (B, Hq, Dh) and a cache k/v (B, S, Hkv, Dh) of one
-dtype (f32 or bf16), Dh in 16/32/64/128/256, rep = Hq / Hkv up to 16, a
+dtype (f32 or bf16), Dh in 16/32/64/80/128/256 (80: zamba2-2.7b's
+shared block, its cache never padded), rep = Hq / Hkv up to 16, a
 scalar or (B,) `cache_len` and an optional window.  A CUDA call outside
 that form raises: it is never sent to the plain version.
 """
@@ -31,7 +32,7 @@ Tensor = torch.Tensor
 
 MAX_BLOCKS = 16                 # blocks per cluster (16: non-portable)
 MAX_REP = 16
-HEAD_WIDTHS = (16, 32, 64, 128, 256)
+HEAD_WIDTHS = (16, 32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # q k v cache_len o | B S Hkv rep Dh window dtype | scale | nb | stream

@@ -14,8 +14,10 @@ step keys are pure functions of the step).  Runs on `cuda` unless
         [--resume]
 
 LM training covers every token arch of `configs.ARCH_IDS`: the dense and
-MoE transformers, and whisper-base's encoder-decoder, whose batches carry
-stub frames drawn from the step's key as the JAX launcher draws them.
+MoE transformers, rwkv6-7b and zamba2-2.7b (token batches; the gradient
+runs through their chunked recurrences), and whisper-base's encoder-
+decoder, whose batches carry stub frames drawn from the step's key as the
+JAX launcher draws them.
 """
 from __future__ import annotations
 
@@ -69,11 +71,6 @@ def train_lm(args, *, spec=None, on_step: Optional[Callable] = None) -> dict:
     device = torch.device(args.device)
     if spec is None:
         spec = get_arch(args.arch, reduced=args.reduced)
-    if spec.family not in ("transformer", "encdec"):
-        raise NotImplementedError(
-            f"{spec.name}: LM training of the {spec.family!r} family is not "
-            "ported (ROADMAP.md, queue 1 item 5); the transformer and encdec "
-            "archs train")
     arch = Arch(spec)
     opt_cfg = AdamWCfg(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 5))

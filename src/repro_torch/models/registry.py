@@ -1,10 +1,15 @@
 """Architecture interface over the model families the launchers and the
-token engine consume — the transformer family (dense and MoE) and the
-whisper-style encoder-decoder:
+token engine consume — all four of the JAX package's: the transformer
+(dense and MoE), rwkv (RWKV6, attention-free), zamba (Mamba2 with a
+shared attention block) and the whisper-style encoder-decoder:
 
     init(seed, device)               -> params (random, from a seed)
     loss(params, batch)              -> scalar (causal-LM cross-entropy)
-    init_cache(batch, max_len)       -> per-layer zeroed (k, v) caches
+    init_cache(batch, max_len)       -> zeroed caches: lists of
+                                        batch-leading tensors (the layers'
+                                        (k, v); rwkv's per-layer states;
+                                        zamba's per-layer Mamba2 states and
+                                        per-group (k, v))
     encode_memory(params, frames)    -> encoder memory (encdec), else None
     prefill(params, batch, max_len)  -> (logits_last, caches)
     decode(params, token, caches, cache_len, memory=None)
@@ -14,8 +19,7 @@ whisper-style encoder-decoder:
 entries whose modality frontend is a stub (internvl2-1b): their batches
 carry (B, S, D) embeddings.  An encdec batch carries "frames" (B,
 frontend_ctx, D), the stub frontend's output, or for prefill the
-encoder's "memory" itself.  The other families of the JAX package (rwkv,
-zamba) are not ported: an `Arch` over one of them raises.
+encoder's "memory" itself.  An `Arch` over any other family raises.
 """
 from __future__ import annotations
 
@@ -26,14 +30,13 @@ import torch
 
 from . import transformer, zoo
 
-FAMILIES = ("transformer", "encdec")
+FAMILIES = ("transformer", "rwkv", "zamba", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                   # transformer | encdec (rwkv | zamba: not
-                                  # ported)
+    family: str                   # transformer | rwkv | zamba | encdec
     cfg: Any
     input_mode: str = "tokens"    # tokens | embeddings (stub frontend)
     frontend_ctx: int = 0         # encoder frames (encdec)
@@ -43,10 +46,11 @@ class Arch:
     def __init__(self, spec: ArchSpec):
         if spec.family not in FAMILIES:
             raise NotImplementedError(
-                f"{spec.name}: the {spec.family!r} family is not ported "
-                f"(ported: {FAMILIES})")
+                f"{spec.name}: {spec.family!r} is not a family of the port "
+                f"(families: {FAMILIES})")
         self.spec = spec
         self.cfg = spec.cfg
+        self.family = spec.family
         self.encdec = spec.family == "encdec"
 
     def init(self, seed: int = 0, device="cuda") -> Any:
@@ -54,9 +58,10 @@ class Arch:
         `seed` (so a full-width init never stages through the host)."""
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
-        if self.encdec:
-            return zoo.encdec_init(self.cfg, gen, device)
-        return transformer.init_params(self.cfg, gen, device)
+        init = {"transformer": transformer.init_params,
+                "rwkv": zoo.rwkv_init, "zamba": zoo.zamba_init,
+                "encdec": zoo.encdec_init}[self.family]
+        return init(self.cfg, gen, device)
 
     def loss(self, params: Any, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -66,16 +71,18 @@ class Arch:
         if self.encdec:
             return zoo.encdec_loss(params, self.cfg, batch["frames"],
                                    batch["tokens"], batch["labels"])
-        return transformer.lm_loss(params, self.cfg, batch.get("tokens"),
-                                   batch["labels"],
-                                   embeddings=batch.get("embeddings"))
+        loss = {"transformer": transformer.lm_loss, "rwkv": zoo.rwkv_loss,
+                "zamba": zoo.zamba_loss}[self.family]
+        return loss(params, self.cfg, batch.get("tokens"), batch["labels"],
+                    embeddings=batch.get("embeddings"))
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
-        if self.encdec:
-            return zoo.encdec_init_cache(self.cfg, batch, max_len,
-                                         device=device)
-        return transformer.init_cache(self.cfg, batch, max_len,
-                                      device=device)
+        if self.family == "rwkv":                  # O(1) in max_len
+            return zoo.rwkv_init_cache(self.cfg, batch, device=device)
+        init = {"transformer": transformer.init_cache,
+                "zamba": zoo.zamba_init_cache,
+                "encdec": zoo.encdec_init_cache}[self.family]
+        return init(self.cfg, batch, max_len, device=device)
 
     def encode_memory(self, params: Any, frames: Optional[torch.Tensor]
                       ) -> Optional[torch.Tensor]:
@@ -94,6 +101,12 @@ class Arch:
                 memory = self.encode_memory(params, batch["frames"])
             return zoo.prefill(params, self.cfg, batch["tokens"], memory,
                                max_len)
+        if self.family == "rwkv":
+            return zoo.rwkv_prefill(params, self.cfg, batch.get("tokens"),
+                                    batch.get("embeddings"))
+        if self.family == "zamba":
+            return zoo.zamba_prefill(params, self.cfg, batch.get("tokens"),
+                                     max_len, batch.get("embeddings"))
         return transformer.prefill(params, self.cfg, batch["tokens"],
                                    max_len)
 
@@ -101,10 +114,16 @@ class Arch:
                cache_len, memory: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Any]:
         """One-token serve step.  token: (B, 1); `memory` the encoder
-        memory of an encdec arch; the caches are updated in place and
-        returned."""
+        memory of an encdec arch.  K/V caches are updated in place; the
+        recurrent states (rwkv, zamba's Mamba2 layers) come back as new
+        tensors in the returned caches."""
         if self.encdec:
             return zoo.decode_step(params, self.cfg, token, memory, caches,
                                    cache_len)
+        if self.family == "rwkv":
+            return zoo.rwkv_decode_step(params, self.cfg, token, caches)
+        if self.family == "zamba":
+            return zoo.zamba_decode_step(params, self.cfg, token, caches,
+                                         cache_len)
         return transformer.decode_step(params, self.cfg, token, caches,
                                        cache_len)

@@ -11,7 +11,16 @@ small done/progress mask at most every `sync_every` rounds — exactly at
 the next possible retirement when no eos intervenes — and fetches the
 output row of each finished slot.  On the card each layer's prefill
 attention is the causal flash kernel and each decode round's attention
-the one-launch `decode_attention` kernel.  An encoder-decoder arch
+the one-launch `decode_attention` kernel.  The caches are lists of
+batch-leading tensors, whatever the family: the admission scatter, the
+parking and the resume map over every leaf, each leaf keeping its own
+dtype (rwkv's S and zamba's SSM states f32, the token-shift and
+convolution states and the K/V in the config's dtype).  The recurrent
+states of frozen and retired rows go on advancing every round: that is
+row-local garbage, as a frozen row's K/V write is, which an admission
+overwrites and a resume restores.  rwkv runs no attention kernel; zamba's
+shared block runs the flash kernel once a group in prefill and
+`decode_attention` once a group a round.  An encoder-decoder arch
 (whisper-base) also keeps an f32 encoder-memory pool, one (frontend_ctx,
 d_model) row a slot, as the JAX engine does: each admission wave's frames
 are encoded once at the wave's width, its prefill reads the fresh memory
@@ -75,7 +84,7 @@ from ..models import quantize as qtz
 from ..sde.base import family_name
 from .api import ServeRequest
 from .loop import ServeLoop, bucket_pow2
-from .parking import row_fetch, row_restore
+from .parking import row_fetch, row_restore, rows_scatter
 from .scheduler import Scheduler
 from .state import diffusion_state_init, token_state_init
 
@@ -91,8 +100,8 @@ def _place(tree: Any, device: torch.device) -> Any:
 
 
 class TokenEngine(ServeLoop):
-    """Continuous-batching greedy decode over a transformer or an
-    encoder-decoder `Arch` (whose requests carry `frames`).
+    """Continuous-batching greedy decode over an `Arch` of any family (an
+    encoder-decoder's requests carry `frames`).
 
         engine = TokenEngine(arch, params, batch_size=4, max_len=1024)
         results = engine.serve([ServeRequest(rid=0, workload="token",
@@ -183,9 +192,7 @@ class TokenEngine(ServeLoop):
         meta = torch.tensor([free[:n], [r.max_new for r in group]],
                             dtype=torch.int32).to(self.device)
         ids, budgets = meta[0].long(), meta[1]
-        for (dk, dv), (sk, sv) in zip(self.caches, caches_g):
-            dk[ids] = sk[:n].to(dk.dtype)
-            dv[ids] = sv[:n].to(dv.dtype)
+        rows_scatter(self.caches, caches_g, ids, n)
         if self.memory is not None:
             self.memory[ids] = batch["memory"][:n].to(self.memory.dtype)
         # a slot born done (budget 1, or the prefill token is already eos)
@@ -245,8 +252,8 @@ class TokenEngine(ServeLoop):
 
     @torch.no_grad()
     def _suspend_slot(self, slot):
-        # the state row (fetched while still active), every layer's (k, v)
-        # cache row and the memory row of an encdec arch; then the device
+        # the state row (fetched while still active), the row of every
+        # cache leaf and the memory row of an encdec arch; then the device
         # row stops advancing
         i = slot.index
         payload = (row_fetch(self.state, i), row_fetch(self.caches, i),

@@ -2,16 +2,17 @@
 
 Preempting a slot (loop.py `_suspend`) must not lose work: the engine
 gathers the slot's row of every per-slot tensor — the `DiffusionState` /
-`TokenState` row and, for the token engine, every layer's (k, v) cache
-row — and the parking table keeps a host copy, keyed by request rid, next
+`TokenState` row and, for the token engine, every cache leaf's row (the
+layers' (k, v), the recurrent states of rwkv and zamba) — and the parking
+table keeps a host copy, keyed by request rid, next
 to the host shadow the `SlotTable` was tracking.  Resuming writes the same
 bits back into whichever slot row is free at that point (`row_restore`),
 so a preempted request's remaining rounds compute on exactly the state it
 was suspended with: preempted + resumed == uninterrupted, bitwise.
 
-`row_fetch` / `row_restore` are plain tensor indexing over a nested
-structure of tensors (a state `NamedTuple`, a list of cache pairs); there
-is no kernel.  Parking is off the steady-state path: the device fetch
+`row_fetch` / `row_restore` (and the admission's `rows_scatter`) are
+plain tensor indexing over a nested structure of tensors (a state
+`NamedTuple`, lists of cache tuples); there is no kernel.  Parking is off the steady-state path: the device fetch
 happens only at a preemption, the write only at a resume.
 """
 from __future__ import annotations
@@ -51,6 +52,17 @@ def row_restore(tree: Any, row: Any, i: int) -> Any:
         dst[i] = src.to(device=dst.device, dtype=dst.dtype)
         return dst
     return _map(put, tree, row)
+
+
+def rows_scatter(tree: Any, rows: Any, ids: torch.Tensor, n: int) -> Any:
+    """Rows [0, n) of every tensor of `rows` into rows `ids` of the same
+    leaf of `tree`, in place, each cast to the destination's dtype (an
+    admission wave's prefill caches into the slots' caches); returns
+    `tree`."""
+    def put(dst, src):
+        dst[ids] = src[:n].to(dst.dtype)
+        return dst
+    return _map(put, tree, rows)
 
 
 def to_host(tree: Any) -> Any:

@@ -53,6 +53,13 @@ Tiers (kernel vs plain version on the same card):
     Function, the plain backward): dq, dk, dv against torch autograd
     through the plain version in f32, f32 within 1e-5 of each gradient's
     scale, bf16 within 2 bf16 ulp; one kernel launch a forward;
+  * head width 80 (zamba2-2.7b's shared block, never padded):
+    flash_attention's general form (causal over a cache with q_offset,
+    with and without a window, GQA; non-causal) and decode_attention (rep
+    1 and 4, at every cluster size) in bf16 and f32, and the causal
+    gradient, at the tolerances above; reduced rwkv6-7b and zamba2-2.7b
+    on the card against the CPU: prefill logits within 1e-4 of scale,
+    equal token streams, the attention launches of each family;
   * three reduced gemma3-1b LM training steps on the card against the
     CPU: losses within 1e-5 relative, params within 2 lr a step and
     within 1e-6 for 99%;
@@ -313,7 +320,9 @@ DECODE_CASES = [(4, 4, 1, 256, 1024, [1, 96, 690, 1000], 512),
                 (3, 4, 2, 16, 40, [1, 33, 40], 5),
                 (3, 4, 2, 16, 40, [0, 7, 39], None),
                 (2, 16, 1, 128, 1100, [0, 1500], None),
-                (3, 2, 2, 32, 2048, [2048, 5, 1999], 600)]
+                (3, 2, 2, 32, 2048, [2048, 5, 1999], 600),
+                (4, 32, 32, 80, 1024, [1, 96, 640, 1000], None),
+                (3, 8, 2, 80, 300, [0, 77, 300], 50)]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -380,8 +389,11 @@ def test_misaligned_inputs_take_the_elementwise_loads(dev, dtype):
 # queries at a device q_offset of 50, window 1 (each row sees one key), a
 # window under the tile size over several tiles, rep 8 GQA, d_head 32 and
 # 64, rows with no visible key (q_offset past the window's reach: 0), and a
-# block with no key tile at all
-CAUSAL_CASES = [(1, 640, 4, 1024, 1, 256, 512, 0),
+# block with no key tile at all; then d_head 80 (zamba2-2.7b's shared
+# block: its prefill over the cache, a window with a device q_offset, GQA)
+CAUSAL_CASES = [(2, 640, 32, 1024, 32, 80, None, 0),
+                (2, 70, 4, 130, 2, 80, 30, 7),
+(1, 640, 4, 1024, 1, 256, 512, 0),
                 (2, 96, 4, 1024, 1, 256, None, 0),
                 (2, 50, 4, 64, 1, 128, 20, 0),
                 (2, 12, 4, 32, 2, 16, 6, 9),
@@ -1305,3 +1317,133 @@ def test_f32_flash_attention_at_the_dit_shape(dev):
     torch.cuda.synchronize()
     assert kc.launches()["flash_attention"] == 1
     assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_bf16_dh80_runs_the_mma_lm_kernel(dev):
+    """d_head 80 (zamba2-2.7b's shared block) is never padded: a bf16
+    causal call launches `flash_lm_mma_kernel<80, ...>`, an f32 one
+    `flash_lm_kernel<80, ...>`, and a non-causal Sq == Sk call the general
+    form's non-causal instance (the DiT form takes 32 / 64 / 128); one
+    launch a call (counted), each within its tolerance of the plain
+    version."""
+    g = torch.Generator().manual_seed(80)
+    q, k, v = (torch.randn(2, 200, 4, 80, generator=g).to(dev)
+               for _ in range(3))
+    for causal in (True, False):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, k, v)]
+            attn_ops.attention(*x, causal=causal)         # build, opt in
+            torch.cuda.synchronize()
+            kc.reset_launches()
+            # three calls in the trace: CUPTI may drop a trace's first
+            # device events on that machine
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    got = attn_ops.attention(*x, causal=causal)
+                torch.cuda.synchronize()
+            n = kc.launches()
+            assert n["flash_attention"] == 3
+            assert n.get(attn_ops.CROSS_COUNT, 0) == (0 if causal else 3)
+            names = {e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "flash" in e.name}
+            want = ("flash_lm_kernel<80" if dtype == torch.float32
+                    else "flash_lm_mma_kernel<80")
+            assert len(names) == 1 and want in names.pop()
+            _close(got, attention_ref(*x, causal=causal), dtype, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dh80_attention_gradient_matches_plain_version(dev, dtype):
+    """The causal form with a gradient at d_head 80 (zamba2-2.7b's
+    training shape, cut to 2 x 256): the forward kernel once inside
+    `FlashAttention`, the output and dq, dk, dv against torch autograd
+    through the plain version in f32: f32 within 2e-5 / 1e-5 of scale,
+    bf16 within 2 bf16 ulp."""
+    g = torch.Generator().manual_seed(81)
+    q, do, k, v = (torch.randn(2, 256, 8, 80, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kc.reset_launches()
+    out = attn_ops.attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert kc.launches()["flash_attention"] == 1
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_leaves, causal=True)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    for a, b, tol in [(out.detach(), ref_out.detach(), 2e-5)] + [
+            (a, b, 1e-5) for a, b in zip(got, want)]:
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+        else:
+            assert _bf16_ulps(a, b.to(dtype)) <= 2
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4, 8, 16])
+def test_dh80_decode_attention_at_every_cluster_size(dev, nb):
+    """decode_attention at d_head 80 (bf16 and f32, rep 1 and 4) at every
+    cluster size, the entry point called directly: within 2 bf16 ulp /
+    1e-5 of the plain version."""
+    import ctypes
+    import math
+    fn = kc.function("decode_attention", "repro_decode_attention",
+                     dec_ops._ARGS)
+    g = torch.Generator().manual_seed(nb)
+    for rep in (1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            B, Hkv, S, Dh = 3, 2, 200, 80
+            q = torch.randn(B, Hkv * rep, Dh, generator=g).to(dev, dtype)
+            k, v = (torch.randn(B, S, Hkv, Dh, generator=g).to(dev, dtype)
+                    for _ in range(2))
+            cl = torch.tensor([1, 150, 200], dtype=torch.int32, device=dev)
+            out = torch.empty_like(q)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
+                    out.data_ptr(), B, S, Hkv, rep, Dh, 0,
+                    dec_ops._DTYPES[dtype], ctypes.c_float(1 / math.sqrt(Dh)),
+                    nb, kc.stream_ptr(q))
+            kc.check("decode_attention", rc, f"decode_attention nb {nb}")
+            torch.cuda.synchronize()
+            _close(out, decode_attention_ref(q, k, v, cl), dtype, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "zamba2-2.7b"])
+def test_reduced_recurrent_card_matches_cpu(dev, name):
+    """Reduced rwkv6-7b and zamba2-2.7b (f32) on the card and on the CPU
+    with the same seeded weights: the logits of a prefill within 1e-4 of
+    scale and a TokenEngine serve of 5 requests with equal token streams;
+    rwkv launches no attention kernel, zamba one flash_attention a group a
+    wave and one decode_attention a group a round."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve import ServeRequest, TokenEngine
+    arch = Arch(get_arch(name, reduced=True))
+    params = arch.init(seed=2, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, 256, (2, 40)))
+    want = arch.prefill(params, {"tokens": toks}, 48)[0]
+    from repro_torch.ckpt.store import tree_flatten, tree_unflatten
+    leaves, structure = tree_flatten(params)
+    on_card = tree_unflatten(structure, [t.to(dev) for t in leaves])
+    got = arch.prefill(on_card, {"tokens": toks.to(dev)}, 48)[0]
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-4
+    reqs = [ServeRequest(rid=i, workload="token", max_new=6,
+                         tokens=rng.integers(2, 256, 5 + i % 2).astype(
+                             np.int32)) for i in range(5)]
+    out = {}
+    for d in ("cuda", "cpu"):
+        kc.reset_launches()
+        eng = TokenEngine(arch, params, batch_size=2, max_len=24, device=d)
+        out[d] = eng.serve(reqs)
+        if d == "cuda":
+            n = kc.launches()
+            groups = getattr(arch.cfg, "n_groups", 0)
+            assert n.get("flash_attention", 0) == groups * eng.n_prefill_calls
+            assert n.get("decode_attention", 0) == \
+                groups * eng.n_decode_steps
+    for r in reqs:
+        np.testing.assert_array_equal(out["cuda"][r.rid], out["cpu"][r.rid])

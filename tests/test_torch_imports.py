@@ -41,6 +41,8 @@ SLICE_MODULES = [
     "repro_torch.configs.whisper_base",
     "repro_torch.configs.qwen3_moe_30b_a3b",
     "repro_torch.configs.llama4_maverick_400b_a17b",
+    "repro_torch.models.rwkv6", "repro_torch.models.ssm",
+    "repro_torch.configs.rwkv6_7b", "repro_torch.configs.zamba2_2p7b",
 ]
 
 

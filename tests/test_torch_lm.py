@@ -234,5 +234,5 @@ def test_token_engine_rejects_bad_requests(engines):
 
 def test_other_families_are_refused():
     from repro_torch.models.registry import ArchSpec
-    with pytest.raises(NotImplementedError):
-        TArch(ArchSpec(name="rwkv6-7b", family="rwkv", cfg=None))
+    with pytest.raises(NotImplementedError, match="not a family"):
+        TArch(ArchSpec(name="mlp-mixer", family="mixer", cfg=None))

@@ -108,9 +108,7 @@ def weights(name, seed=3, **cfg_kw):
 
 
 def port_params(tarch, tree, grad=False):
-    conv = (convert.from_jax_encdec if tarch.spec.family == "encdec"
-            else convert.from_jax_transformer)
-    params = conv(tree, tarch.cfg)
+    params = convert.from_jax_lm(tree, tarch.cfg)
     for t in param_list(params):
         t.requires_grad_(grad)
     return params
@@ -391,12 +389,12 @@ def test_train_lm_preempted_run_resumes_bitwise():
 
 def test_train_lm_embeddings_arch_and_other_families():
     """internvl2-1b trains through its stub embeddings (drawn from the
-    step's key); a spec of another family is refused."""
+    step's key); a spec of a family the port does not have is refused."""
     run = ttrain.train_lm(_args(arch="internvl2-1b", steps=2))
     assert np.isfinite(run["last_loss"])
-    rwkv = ArchSpec(name="rwkv6-7b", family="rwkv", cfg=None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttrain.train_lm(_args(arch="rwkv6-7b"), spec=rwkv)
+    other = ArchSpec(name="mlp-mixer", family="mixer", cfg=None)
+    with pytest.raises(NotImplementedError, match="not a family"):
+        ttrain.train_lm(_args(), spec=other)
 
 
 def test_train_main_runs_and_resumes():
